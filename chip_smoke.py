@@ -6,25 +6,38 @@
 Needs one CUDA card, nvcc and the repository checkout. Phases, one JSON
 object per line:
 
-  device   card name and power limit (nvidia-smi); exits non-zero without
-           a CUDA device
-  build    nvcc of every csrc/*.cu for sm_90a, all sources at once
-  small    the port's init tick on a tiny scene on the card (kernels)
-           against the same tick on the CPU (plain versions)
-  scene    the full-width init scene: 1080^2 pixels, 128^3 lattice cropped
-           to the template box + 0.1, 2^18 / 196,608 capacities, capsule-
-           seeded SDF (JAX package: bench.py build("full"))
-  kernels  each kernel against its plain version on the scene's own
-           inputs: first_k and the tile resolve exactly equal, the scatter
-           within rel 1e-5 / abs 1e-6 and bitwise equal across two runs;
-           time of the kernel's wrapper, of the plain version and of a
-           library call computing the same function (CUDA events)
-  step     warm-up step, then STEPS timed init training steps (CUDA events)
-           with every kernel launch count reset just before and read just
-           after; losses finite, n_cross > 0, n_cov > 0, each kernel
-           launched, first_k exactly 5 times per step
-  profile  one more step under torch.profiler: device busy time, idle
-           share, the top operators by device time and the port's kernels
+  device       card name and power limit (nvidia-smi); exits non-zero
+               without a CUDA device
+  build        nvcc of every csrc/*.cu for sm_90a, all sources at once
+  small        the port's init tick on a tiny scene on the card (kernels)
+               against the same tick on the CPU (plain versions)
+  small_split  the same for the split tick (both halves, shaded render,
+               texture), same parameters and injected random draws
+  scene        the full-width bench scene: 1080^2 pixels, 128^3 lattice
+               cropped to the template box + 0.1, 2^18 / 196,608
+               capacities, capsule-seeded SDF, mSDF cut at mid height,
+               default hash-grid texture, split targets (JAX package:
+               bench.py build("full"))
+  kernels      each kernel against its plain version on the scene's own
+               inputs: first_k and the tile resolve (without and with a
+               depth-peel floor) exactly equal, the scatter within rel
+               1e-5 / abs 1e-6 and bitwise equal across two runs; time of
+               the kernel's wrapper, of the plain version and of a library
+               call computing the same function (CUDA events)
+  step         warm-up step, then INIT_STEPS timed init training steps
+               (CUDA events) with every kernel launch count reset just
+               before and read just after; losses finite, n_cross > 0,
+               n_cov > 0, first_k exactly 5 and the resolve 1 per step
+  profile      one more init step under torch.profiler: device busy time,
+               idle share, top operators by device time, the port's kernels
+  split_step   the same for SPLIT_STEPS split training steps: both halves
+               non-empty, first_k exactly 8 and the resolve 2 per step
+  validate     the split stage's validation render of both halves
+               (render_stage_mesh(compact=False), layers = VAL_LAYERS):
+               per half 2 resolve launches, 1 of them with a floor; layer 1
+               covers fewer pixels than layer 0 and lies behind it
+  profile      one more split step, then one more validation render of
+               the cloth half, under torch.profiler
 
 Then the kernel table, the nvidia-smi line, and the result line
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
@@ -33,6 +46,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -41,8 +55,11 @@ import time
 
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12     # FP32 outside the tensor cores
-STEPS = 4                      # timed init steps after the warm-up step
+INIT_STEPS = 2                 # timed init steps after the warm-up step
+SPLIT_STEPS = 4                # timed split steps after the warm-up step
 SEED_STEPS = 400               # Adam steps fitting the SDF to the capsule
+VAL_LAYERS = 2                 # depth-peeled layers of the validation render
+EXACT = ("n_cross", "n_valid_tets", "n_big_faces", "n_max_tile")
 
 
 def emit(phase: str, **kw) -> None:
@@ -63,31 +80,34 @@ SCALES = {
     # the JAX package's bench.py build("full") with
     # configs/f3c_synth_full20.json's capacities, crop and optimizer
     "full": dict(res=(1080, 1080), grid_res=128, mv=2 ** 18, mt=196608,
-                 n_eik=50000, cov=0.25, raster_opts=None),
-    # a CPU-sized rehearsal of the same path
+                 n_eik=50000, cov=0.25, crop=448, raster_opts=None),
+    # a CPU-sized rehearsal of the same paths
     "tiny": dict(res=(32, 32), grid_res=8, mv=2048, mt=2048, n_eik=256,
-                 cov=0.9, raster_opts=dict(tile=(8, 16),
-                                           max_faces_per_tile=128,
-                                           bin_expand=8, max_global=128)),
+                 cov=0.9, crop=24, raster_opts=dict(
+                     tile=(8, 16), max_faces_per_tile=128, bin_expand=8,
+                     max_global=128)),
 }
 
 
 def build_scene(scale: str, device: str, seed_steps: int):
-    """Config, model, perceptual, target and train state of the init bench
-    scene, from the port alone. ``seed_steps`` Adam steps fit the SDF MLP
-    to an analytic capsule so the lattice holds a real surface."""
-    import numpy as np
+    """Config, model, texture, perceptual, targets and the train states of
+    the bench scene, from the port alone. ``seed_steps`` Adam steps fit the
+    SDF MLP to an analytic capsule so the lattice holds a real surface; the
+    mSDF is cut at mid height so both split halves carry faces. The init
+    and the split state share one parameter tree (steps update in place)."""
     import torch
 
     from d3human_tpu_torch.config import (
-        Config, GeometryConfig, OptimConfig, RenderConfig,
+        Config, GeometryConfig, LossConfig, OptimConfig, RenderConfig,
     )
     from d3human_tpu_torch.data.synthetic import (
         capsule_sdf, disc_target, make_scene,
     )
     from d3human_tpu_torch.models.geometry import GeometryModel
     from d3human_tpu_torch.models.perceptual import ConvPerceptual
+    from d3human_tpu_torch.models.texture import MLPTexture3D
     from d3human_tpu_torch.ops.tet_grid import make_tet_grid, template_crop_box
+    from d3human_tpu_torch.render.light import create_trainable_env
     from d3human_tpu_torch.train.step import init_state
 
     s = SCALES[scale]
@@ -97,6 +117,7 @@ def build_scene(scale: str, device: str, seed_steps: int):
                                 n_eikonal_samples=s["n_eik"], sdf_chunk=0),
         render=RenderConfig(train_res=s["res"], init_shading=False,
                             max_covered_frac=s["cov"]),
+        loss=LossConfig(perceptual_crop=s["crop"]),
         optim=OptimConfig(clip_max_norm=1.0, init_lr_scale=0.1),
     )
     scene = make_scene(resolution=(64, 64), n_frames=2, device=device)
@@ -113,15 +134,49 @@ def build_scene(scale: str, device: str, seed_steps: int):
         gparams, ploss = model.pretrain_sdf(gparams, capsule_sdf(grid.verts),
                                             steps=seed_steps)
     gparams["msdf"] = torch.clamp(grid.verts[:, 1] * 4.0, -1.0, 1.0)
+    tex = MLPTexture3D(cfg.texture, ([0.0] * 6, [1.0] * 6), device)
     perceptual = ConvPerceptual()
-    params = {"geometry": gparams, "pose": scene.pose_params}
-    return dict(cfg=cfg, model=model, perceptual=perceptual,
+    gen = torch.Generator().manual_seed(1)
+    params = {"geometry": gparams, "pose": scene.pose_params,
+              "material": tex.init(gen),
+              "light": create_trainable_env(gen, cfg.render.probe_res,
+                                            device=device)}
+    return dict(cfg=cfg, model=model, tex=tex, perceptual=perceptual,
                 perc_params=perceptual.init(device), params=params,
-                target=disc_target(cfg.render.train_res, scene.mvp, device),
-                state=init_state(params, cfg), raster_opts=s["raster_opts"],
-                pretrain_loss=ploss, grid_dims=grid.dims,
-                n_verts=grid.n_verts, n_tets=grid.n_tets,
-                n_edges=grid.n_edges)
+                target=disc_target(cfg.render.train_res, scene.mvp,
+                                   scene.campos, device),
+                state=init_state("init", params, cfg),
+                split_state=init_state("split", params, cfg),
+                raster_opts=s["raster_opts"], pretrain_loss=ploss,
+                grid_dims=grid.dims, n_verts=grid.n_verts,
+                n_tets=grid.n_tets, n_edges=grid.n_edges)
+
+
+def tick_draws(cfg, stage: str, seed: int):
+    """Every random number one tick of ``stage`` draws, made on the CPU from
+    ``seed``, in the layout the ticks take as ``draws``: so the card and the
+    CPU run of one tick see the same numbers."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    H, W = cfg.render.train_res
+    n_sub = -(-int(H * W * cfg.render.max_covered_frac)
+              // cfg.render.jitter_subsample)
+    n = cfg.geometry.n_eikonal_samples
+    crop = cfg.loss.perceptual_crop
+
+    def one():
+        return {
+            "eik": (torch.rand((n,), generator=gen),
+                    torch.rand((n, 2), generator=gen)),
+            "render": (torch.randn((n_sub, 3), generator=gen),
+                       torch.randn((n_sub, 2), generator=gen)),
+            "crop": tuple(int(torch.randint(0, max(d - crop, 1), (),
+                                            generator=gen)) for d in (H, W))}
+
+    if stage == "init":
+        return one()
+    return {"cloth": one(), "body": one()}
 
 
 def tree_to(tree, device):
@@ -166,36 +221,37 @@ def bound_ms(n_bytes: float, n_ops: float = 0.0):
 
 
 def phase_small(seed_steps: int) -> None:
-    """The whole init tick, kernels on the card vs plain versions on the
-    CPU, on one tiny scene with identical parameters and sample draws."""
-    import torch
-
-    from d3human_tpu_torch.train.losses import tick_init
+    """The whole init tick and the whole split tick, kernels on the card
+    vs plain versions on the CPU, on one tiny scene with identical
+    parameters and random draws."""
+    from d3human_tpu_torch.train.step import stage_tick
 
     cpu = build_scene("tiny", "cpu", seed_steps)
     gpu = build_scene("tiny", "cuda", 0)
     gpu["params"] = tree_to(cpu["params"], "cuda")
-    gen = torch.Generator().manual_seed(1)
-    n = cpu["cfg"].geometry.n_eikonal_samples
-    draws = (torch.rand((n,), generator=gen), torch.rand((n, 2), generator=gen))
-    out = {}
-    for name, sc in (("cpu", cpu), ("cuda", gpu)):
-        out[name] = scalars(tick_init(
-            sc["model"], sc["params"]["geometry"], sc["params"]["pose"],
-            sc["perceptual"], sc["perc_params"], sc["target"], 7,
-            sc["cfg"], sc["raster_opts"], eik_draws=draws))
-    worst = 0.0
-    for k, want in out["cpu"].items():
-        got = out["cuda"][k]
-        if k.startswith("n_"):
-            check(got == want, f"small: {k} {got} != {want}")
-        else:
-            err = abs(got - want) / max(abs(want), 1e-3)
-            worst = max(worst, err)
-            check(err <= 1e-3, f"small: {k} {got} vs {want}")
-    check(out["cpu"]["n_cross"] > 0, "small: empty mesh")
-    emit("small", ok=True, tolerance="counters exact, rel 1e-3",
-         worst_rel_err=worst, cuda=out["cuda"])
+    for stage, phase in (("init", "small"), ("split", "small_split")):
+        draws = tick_draws(cpu["cfg"], stage, seed=1)
+        out = {}
+        for name, sc in (("cpu", cpu), ("cuda", gpu)):
+            out[name] = scalars(stage_tick(
+                stage, sc["model"], sc["tex"], sc["perceptual"],
+                sc["perc_params"], sc["params"], sc["target"], 7, sc["cfg"],
+                sc["raster_opts"], draws=draws))
+        check(set(out["cpu"]) == set(out["cuda"]), f"{phase}: keys differ")
+        worst = 0.0
+        for k, want in out["cpu"].items():
+            got = out["cuda"][k]
+            if k.endswith(EXACT):
+                check(got == want, f"{phase}: {k} {got} != {want}")
+            else:
+                err = abs(got - want) / max(abs(want), 1e-3)
+                worst = max(worst, err)
+                check(err <= 1e-3, f"{phase}: {k} {got} vs {want}")
+        for k in (("n_cross",) if stage == "init"
+                  else ("cloth_n_cross", "body_n_cross")):
+            check(out["cpu"][k] > 0, f"{phase}: empty mesh ({k})")
+        emit(phase, ok=True, tolerance="counters exact, rel 1e-3",
+             worst_rel_err=worst, cuda=out["cuda"])
 
 
 def phase_kernels(sc: dict) -> list:
@@ -268,12 +324,25 @@ def phase_kernels(sc: dict) -> list:
     # are zero here too.
     gen = torch.Generator(device="cuda").manual_seed(0)
     V = meshes.verts_posed.shape[0]
+    # the finest hash level's rows of the covered pixels' texture points
+    # (here the template-space centroid of each pixel's face)
+    tex = sc["tex"]
+    enc, lvl = tex.encoder, tex.encoder.n_levels - 1
+    pts = meshes.verts_template[faces[fid.long()].long()].mean(1)
+    u = ((pts - tex.bbox_lo) / (tex.bbox_hi - tex.bbox_lo)).clamp(0.0, 1.0)
+    hash_idx = enc._corner_index(
+        lvl, torch.floor(u * enc.resolutions[lvl]).to(torch.int32))
+    corners = faces[fid.long()].reshape(-1)
     sc_calls = [
-        ("vertex gather bwd", faces[fid.long()].reshape(-1),
-         pix_valid.repeat_interleave(3), 8, V, False),
+        ("vertex gather bwd", corners, pix_valid.repeat_interleave(3), 8, V,
+         False),
         ("face-normal gather bwd", faces.reshape(-1),
          fvalid.repeat_interleave(3), 3, V, False),
         ("image scatter", pix_idx, pix_valid, 4, npix, True),
+        ("vertex gather bwd, shaded (14-wide)", corners,
+         pix_valid.repeat_interleave(3), 14, V, False),
+        ("hash level bwd (corner-packed rows)", hash_idx, pix_valid,
+         8 * enc.n_features, enc.level_sizes[lvl], False),
     ]
     sc_times = []
     for what, idx, live, C, rows_out, srt in sc_calls:
@@ -293,8 +362,10 @@ def phase_kernels(sc: dict) -> list:
             return torch.zeros((rows_out + 1, C), device="cuda").index_add_(
                 0, didx, vals)[:rows_out]
 
+        b, by = bound_ms(N * 4 * (1 + C) + rows_out * 4 * C)
         sc_times.append(dict(
             call=what, N=N, C=C, out_rows=rows_out, sorted=srt,
+            bound_ms=b, bound_by=by,
             max_abs_err=float(err.max()), bitwise=torch.equal(got, want),
             ms=cuda_ms(lambda: scatter.coo_scatter_add(idx, vals, rows_out,
                                                        sorted_idx=srt)),
@@ -304,14 +375,14 @@ def phase_kernels(sc: dict) -> list:
     emit("kernel_scatter", deterministic=True, tolerance="rel 1e-5 abs 1e-6",
          calls=sc_times)
     big = sc_times[0]
-    b, by = bound_ms(big["N"] * 4 * (1 + big["C"]) + big["out_rows"] * 4 * big["C"])
     rows.append(dict(name="coo_scatter_add", route="cuda",
                      source="d3human_tpu_torch/csrc/scatter.cu",
                      replaces="d3human_tpu/ops/scatter.py:41",
                      shape=f"N={big['N']} C={big['C']} out={big['out_rows']}",
                      max_abs_err=max(c["max_abs_err"] for c in sc_times),
-                     ms=big["ms"], plain_ms=big["plain_ms"], bound_ms=b,
-                     bound_by=by, library_ms=big["library_ms"]))
+                     ms=big["ms"], plain_ms=big["plain_ms"],
+                     bound_ms=big["bound_ms"], bound_by=big["bound_by"],
+                     library_ms=big["library_ms"]))
 
     # ---- tile resolve on the scene's own binned rows: exact keys
     tile = (8, 128)
@@ -336,34 +407,102 @@ def phase_kernels(sc: dict) -> list:
     emit("kernel_resolve", exact=True, **rs)
     rows.append(dict(name="resolve_tiles", route="cuda",
                      source="d3human_tpu_torch/csrc/raster_resolve.cu",
-                     replaces="d3human_tpu/ops/pallas_raster.py:64",
+                     replaces="d3human_tpu/ops/pallas_raster.py:52",
                      shape=f"NT={NT} M={M} P={Ppix}", max_abs_err=0.0,
                      ms=rs["ms"], plain_ms=rs["plain_ms"], bound_ms=b,
                      bound_by=by, library_ms=None))
+
+    # ---- the depth-peel step on the same rows: layer 0's keys as the
+    # floor; exact keys, every hit strictly behind its floor, and a pixel
+    # that missed in layer 0 misses again
+    floor = got
+    got_p = rr.resolve_tiles(binned.tile_rows, tile, ntx, floor=floor)
+    want_p = rr.resolve_tiles_plain(binned.tile_rows, tile, ntx, floor=floor)
+    check(torch.equal(got_p, want_p), "resolve with floor: kernel != plain "
+          f"({int((got_p != want_p).sum())} keys differ)")
+    hit_p = got_p != rr.MISS_KEY
+    check(bool(hit_p.any()), "resolve with floor: no second layer")
+    check(bool((got_p[hit_p] > floor[hit_p]).all()),
+          "resolve with floor: a key at or below its floor")
+    check(not bool(hit_p[floor == rr.MISS_KEY].any()),
+          "resolve with floor: a hit behind a miss")
+    # the floor-free bytes and operations, plus the floor read and one
+    # more compare per live slot and pixel
+    b, by = bound_ms(live_slots * 64 + (NT * M - live_slots) * 4
+                     + 2 * NT * Ppix * 4, 19.0 * live_slots * Ppix)
+    ps = dict(NT=NT, M=M, live_slots=live_slots, hit_pixels=int(hit_p.sum()),
+              ms=cuda_ms(lambda: rr.resolve_tiles(binned.tile_rows, tile,
+                                                  ntx, floor=floor)),
+              plain_ms=cuda_ms(lambda: rr.resolve_tiles_plain(
+                  binned.tile_rows, tile, ntx, floor=floor), reps=2, warm=1))
+    emit("kernel_resolve_peel", exact=True, **ps)
+    rows.append(dict(name="resolve_tiles_peel", route="cuda",
+                     source="d3human_tpu_torch/csrc/raster_resolve.cu",
+                     replaces="d3human_tpu/ops/pallas_raster.py:58",
+                     shape=f"NT={NT} M={M} P={Ppix} + floor",
+                     max_abs_err=0.0, ms=ps["ms"], plain_ms=ps["plain_ms"],
+                     bound_ms=b, bound_by=by, library_ms=None))
     return rows
 
 
-def phase_step(sc: dict, steps: int) -> dict:
-    import torch
-
+def reset_counts() -> None:
     from d3human_tpu_torch.ops import compaction, raster_resolve, scatter
+
+    compaction.first_k_indices.launches = 0
+    scatter.coo_scatter_add.launches = 0
+    raster_resolve.resolve_tiles.launches = 0
+    raster_resolve.resolve_tiles.floor_launches = 0
+
+
+def read_counts() -> dict:
+    """Kernel launches since ``reset_counts``, by the kernel table's names:
+    the resolve's launches with a floor count as ``resolve_tiles_peel``."""
+    from d3human_tpu_torch.ops import compaction, raster_resolve, scatter
+
+    rt = raster_resolve.resolve_tiles
+    return {"first_k_indices": compaction.first_k_indices.launches,
+            "coo_scatter_add": scatter.coo_scatter_add.launches,
+            "resolve_tiles": rt.launches - rt.floor_launches,
+            "resolve_tiles_peel": rt.floor_launches}
+
+
+# launches per step the stage's code path must make (first_k: crossing
+# edges and valid tets once, then per render covered pixels + AA pairs x, y)
+STEP_LAUNCHES = {"init": {"first_k_indices": 5, "resolve_tiles": 1},
+                 "split": {"first_k_indices": 8, "resolve_tiles": 2}}
+
+
+def stage_step_fn(sc: dict, stage: str):
     from d3human_tpu_torch.train.step import make_train_step
 
-    counters = {"first_k_indices": compaction.first_k_indices,
-                "coo_scatter_add": scatter.coo_scatter_add,
-                "resolve_tiles": raster_resolve.resolve_tiles}
-    step_fn = make_train_step(sc["model"], sc["perceptual"],
-                              sc["perc_params"], sc["cfg"], sc["raster_opts"])
+    return make_train_step(stage, sc["model"], sc["tex"], sc["perceptual"],
+                           sc["perc_params"], sc["cfg"], sc["raster_opts"])
+
+
+def check_step_metrics(stage: str, m: dict, where: str) -> None:
+    for k, v in m.items():
+        check(math.isfinite(v), f"{where}: {k} = {v}")
+    for half in (("",) if stage == "init" else ("cloth_", "body_")):
+        check(m[half + "n_cross"] > 0, f"{where}: {half}n_cross == 0")
+        check(m[half + "cap_cov"] > 0, f"{where}: {half}n_cov == 0")
+
+
+def phase_step(sc: dict, stage: str, steps: int) -> dict:
+    """Warm-up step, then ``steps`` timed training steps of ``stage``."""
+    import torch
+
+    phase = "step" if stage == "init" else "split_step"
+    state_key = "state" if stage == "init" else "split_state"
+    step_fn = stage_step_fn(sc, stage)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    state = sc["state"]
+    state = sc[state_key]
     t0 = time.perf_counter()
     state, m = step_fn(state, sc["target"], gen)          # warm-up
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts()
     events[0].record()
     metrics = []
     for i in range(steps):
@@ -371,49 +510,134 @@ def phase_step(sc: dict, steps: int) -> dict:
         events[i + 1].record()
         metrics.append(m)
     torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = read_counts()
+    sc[state_key] = state
     step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
-    last = scalars(metrics[-1])
     for i, mm in enumerate(metrics):
-        for k, v in scalars(mm).items():
-            check(math.isfinite(v), f"step {i}: {k} = {v}")
-    check(last["n_cross"] > 0, "n_cross == 0")
-    check(last["cap_cov"] > 0, "n_cov == 0")
-    for k, n in launches.items():
-        check(n > 0, f"{k} never launched on the step")
-    check(launches["first_k_indices"] == 5 * steps,
-          f"first_k launched {launches['first_k_indices']} times in "
-          f"{steps} steps, expected {5 * steps}")
-    res = tuple(sc["cfg"].render.train_res)
+        check_step_metrics(stage, scalars(mm), f"{phase} {i}")
+    last = scalars(metrics[-1])
+    check(launches["coo_scatter_add"] > 0,
+          f"{phase}: the scatter kernel never launched")
+    check(launches["resolve_tiles_peel"] == 0,
+          f"{phase}: a training step launched the resolve with a floor")
+    for k, per_step in STEP_LAUNCHES[stage].items():
+        check(launches[k] == per_step * steps,
+              f"{phase}: {k} launched {launches[k]} times in {steps} steps, "
+              f"expected {per_step * steps}")
     out = dict(steps=steps, step_ms=step_ms,
                mean_ms=sum(step_ms) / steps, warmup_s=warm_s,
                launches_per_step={k: n / steps for k, n in launches.items()},
-               n_cov=int(round(last["cap_cov"] * int(
-                   res[0] * res[1] * sc["cfg"].render.max_covered_frac))),
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                losses=last)
-    emit("step", **out)
+    emit(phase, **out)
     out["launches"] = launches
     return out
 
 
-def phase_profile(sc: dict) -> None:
-    """One more init step under torch.profiler: device busy time against
-    the step's wall time, the operators with the most device time, and
-    the port's own kernels."""
+def validation_render(sc: dict, sign: float, generator=None):
+    """The validation render of one split half (cloth +1, body -1) as the
+    stage loop makes it: extraction + ``render_mesh_full`` with
+    ``VAL_LAYERS`` depth-peeled layers, forward only."""
+    import torch
+
+    from d3human_tpu_torch.train.losses import render_stage_mesh
+
+    cfg = dataclasses.replace(sc["cfg"], render=dataclasses.replace(
+        sc["cfg"].render, layers=VAL_LAYERS))
+    p = sc["params"]
+    with torch.no_grad():
+        return render_stage_mesh(
+            generator, sc["model"], p["geometry"], p["pose"], sc["tex"],
+            p["material"], sc["target"], cfg, msdf_sign=sign,
+            raster_opts=sc["raster_opts"], compact=False)
+
+
+def check_validation(sc: dict, who: str, meshes, buf) -> dict:
+    """A validation render's buffers and the layers it composited (the
+    same rasterization made once more): finite images, each further layer
+    on fewer pixels, only where the layer before hit, behind it and on
+    another face. Returns the layers' pixel counts."""
+    import torch
+
+    from d3human_tpu_torch.ops.rasterizer import rasterize, xfm_points
+
+    H, W = sc["cfg"].render.train_res
+    with torch.no_grad():
+        layers = rasterize(
+            xfm_points(meshes.verts_posed, sc["target"]["mvp"]),
+            meshes.mesh.faces, meshes.mesh.face_valid, (H, W),
+            layers=VAL_LAYERS, **(sc["raster_opts"] or {}))
+    check(tuple(buf.shaded.shape) == (H, W, 4), f"{who}: shaded shape")
+    for name in ("shaded", "geometric_normal", "normal", "kd", "depth",
+                 "msdf_image"):
+        check(bool(torch.isfinite(getattr(buf, name)).all()),
+              f"{who}: {name} not finite")
+    check(torch.equal(layers[0].tri_id, buf.rast.tri_id),
+          f"{who}: the render's nearest layer is not layer 0")
+    hit = [lay.tri_id > 0 for lay in layers]
+    n_hit = [int(h.sum()) for h in hit]
+    for k in range(1, VAL_LAYERS):
+        near, far = layers[k - 1], layers[k]
+        check(0 < n_hit[k] < n_hit[k - 1],
+              f"{who}: layer {k} covers {n_hit[k]} pixels, layer {k - 1} "
+              f"{n_hit[k - 1]}")
+        check(not bool((hit[k] & ~hit[k - 1]).any()),
+              f"{who}: layer {k} hits where layer {k - 1} missed")
+        # keys grow strictly; the quantized depth they carry may tie
+        check(bool((far.zbuf[hit[k]] >= near.zbuf[hit[k]]).all()),
+              f"{who}: layer {k} in front of layer {k - 1}")
+        check(bool((far.tri_id[hit[k]] != near.tri_id[hit[k]]).all()),
+              f"{who}: layer {k} repeats a face of layer {k - 1}")
+    return dict(layer_pixels=n_hit,
+                alpha_mean=float(buf.shaded[..., 3].mean()))
+
+
+def phase_validate(sc: dict) -> dict:
+    """Both halves' validation renders: a first render with the checks,
+    then one timed render each (CUDA events) with the launch counts reset
+    just before and read just after."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    halves, total = {}, {}
+    for name, sign in (("cloth", 1.0), ("body", -1.0)):
+        info = check_validation(sc, f"validate {name}",
+                                *validation_render(sc, sign, gen))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        reset_counts()
+        start.record()
+        validation_render(sc, sign, gen)
+        end.record()
+        end.synchronize()
+        n = read_counts()
+        check(n["resolve_tiles"] == 1
+              and n["resolve_tiles_peel"] == VAL_LAYERS - 1,
+              f"validate {name}: resolve launches {n}")
+        check(n["first_k_indices"] > 0 and n["coo_scatter_add"] > 0,
+              f"validate {name}: launches {n}")
+        halves[name] = dict(info, ms=start.elapsed_time(end), launches=n)
+        for k, v in n.items():
+            total[k] = total.get(k, 0) + v
+    emit("validate", layers=VAL_LAYERS, halves=halves,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    return dict(launches=total)
+
+
+def phase_profile(what: str, run) -> None:
+    """``run()`` once more under torch.profiler (a training step or a
+    validation render): device busy time against its wall time, the
+    operators with the most device time, the port's own kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from d3human_tpu_torch.train.step import make_train_step
-
-    step_fn = make_train_step(sc["model"], sc["perceptual"],
-                              sc["perc_params"], sc["cfg"], sc["raster_opts"])
-    gen = torch.Generator(device="cuda").manual_seed(1)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         t0 = time.perf_counter()
-        sc["state"], _ = step_fn(sc["state"], sc["target"], gen)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events()
@@ -426,11 +650,27 @@ def phase_profile(sc: dict) -> None:
         return dict(name=e.key[:80], self_device_ms=
                     e.self_device_time_total / 1e3, calls=e.count)
 
-    emit("profile", wall_ms=wall_ms, device_busy_ms=busy_ms,
+    # the accumulating index_put is the backward of plain row indexing:
+    # its input shapes say which gathers of the step it serves
+    by_shape = [e for e in prof.key_averages(group_by_input_shape=True)
+                if e.key == "aten::_index_put_impl_"]
+    emit("profile", of=what, wall_ms=wall_ms, device_busy_ms=busy_ms,
          idle_share=1.0 - busy_ms / wall_ms, device_kernels=len(kernels),
          top=[row(e) for e in avg[:20]],
+         index_put=[dict(shapes=str(e.input_shapes), calls=e.count,
+                         device_ms=e.device_time_total / 1e3)
+                    for e in sorted(by_shape, key=lambda e:
+                                    -e.device_time_total)[:12]],
          port_kernels=[row(e) for e in avg if e.key.startswith(
              ("first_k_kernel", "segsum_level", "resolve_tiles_kernel"))])
+
+
+def one_more_step(sc: dict, stage: str) -> None:
+    import torch
+
+    key = "state" if stage == "init" else "split_state"
+    sc[key], _ = stage_step_fn(sc, stage)(
+        sc[key], sc["target"], torch.Generator(device="cuda").manual_seed(1))
 
 
 def main() -> int:
@@ -462,17 +702,28 @@ def main() -> int:
     torch.cuda.synchronize()
     emit("scene", seconds=time.perf_counter() - t0, grid_dims=sc["grid_dims"],
          n_verts=sc["n_verts"], n_tets=sc["n_tets"], n_edges=sc["n_edges"],
+         texture_resolutions=sc["tex"].encoder.resolutions,
+         texture_dense=sc["tex"].encoder.dense,
          pretrain_loss=sc["pretrain_loss"])
 
     rows = phase_kernels(sc)
-    step = phase_step(sc, STEPS)
-    phase_profile(sc)
+    paths = {"init_step": phase_step(sc, "init", INIT_STEPS)["launches"]}
+    phase_profile("init step", lambda: one_more_step(sc, "init"))
+    paths["split_step"] = phase_step(sc, "split", SPLIT_STEPS)["launches"]
+    paths["validate"] = phase_validate(sc)["launches"]
+    phase_profile("split step", lambda: one_more_step(sc, "split"))
+    phase_profile("validation render, cloth half",
+                  lambda: validation_render(sc, 1.0))
     for r in rows:
-        # launches: kernel launches in the STEPS timed steps (the scatter
-        # counts each launch of its level kernel, not each call)
-        r["launches"] = step["launches"][r["name"]]
-        r["steps"] = STEPS
-        r["launches_per_step"] = r["launches"] / STEPS
+        # launches: the kernel's launches on the driven paths (INIT_STEPS
+        # init steps, SPLIT_STEPS split steps, one validation render of
+        # each half); the scatter counts each launch of its level kernel
+        r["launches_by_path"] = {k: v[r["name"]] for k, v in paths.items()}
+        r["launches"] = sum(r["launches_by_path"].values())
+        check(r["launches"] > 0, f"{r['name']} launched on no driven path")
+    emit("paths", init_step={"steps": INIT_STEPS},
+         split_step={"steps": SPLIT_STEPS},
+         validate={"renders": 2, "layers": VAL_LAYERS}, launches=paths)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
-"""Frozen configuration tree: the fields the init-stage training step reads.
+"""Frozen configuration tree: the fields the init- and split-stage training
+steps and the validation render read.
 
-A copy of ``d3human_tpu/config.py`` cut to this slice; field names and
+A copy of ``d3human_tpu/config.py`` cut to these slices; field names and
 defaults are the JAX package's, so a JAX ``Config`` converts field by field
 (``from_jax_config``).
 """
@@ -38,17 +39,58 @@ class GeometryConfig:
 
 
 @dataclass(frozen=True)
+class TextureConfig:
+    """Hash-grid neural texture (ref render/mlptexture.py:51-116)."""
+
+    channels: int = 6
+    n_levels: int = 5
+    n_features_per_level: int = 2
+    log2_hashmap_size: int = 21
+    base_resolution: int = 16
+    desired_resolution: int = 4096
+    ref_levels_for_scale: int = 16   # per_level_scale as if 16 levels
+    internal_dims: int = 32
+    hidden: int = 2
+    gradient_scaling: float = 128.0
+    # hard-coded sample bbox (ref mlptexture.py:94, a preserved quirk)
+    bbox_lo: Tuple[float, float, float] = (0.6, 0.6, 0.2)
+    bbox_hi: Tuple[float, float, float] = (-0.8, -1.2, -0.2)
+
+
+@dataclass(frozen=True)
 class RenderConfig:
     train_res: Tuple[int, int] = (1080, 1080)
+    spp: int = 1
+    # depth-peeled layers of the full (validation) render; training always
+    # consumes the nearest layer
+    layers: int = 1
+    probe_res: int = 256
     max_covered_frac: float = 0.5
+    jitter_subsample: int = 2
+    # antialias every neighbour pair on the compacted path (instrumentation)
+    aa_dense: bool = False
     init_shading: bool = False
+
+    def __post_init__(self):
+        if not (1 <= self.layers <= 4):
+            raise ValueError(
+                f"layers={self.layers}: depth peeling supports 1-4 layers")
 
 
 @dataclass(frozen=True)
 class LossConfig:
+    loss: str = "logl1"
     sdf_regularizer: float = 0.2
+    msdf_reg_open_scale: float = 1e-6
+    msdf_reg_close_scale: float = 3e-6
     eikonal_scale: Optional[float] = None
+    lambda_kd: float = 0.1
+    lambda_ks: float = 0.05
+    lambda_nrm: float = 0.025
+    lambda_chroma: float = 0.0
     use_eikonal: bool = True
+    use_mesh_msdf_reg: bool = True
+    perceptual_crop: int = 448
 
 
 @dataclass(frozen=True)
@@ -58,17 +100,21 @@ class OptimConfig:
     clip_max_norm: float = 0.0
     sdf_lr_mult: float = 1e-2
     init_lr_scale: float = 1.0
+    light_grad_scale: float = 64.0
+    hashgrid_grad_scale: float = 0.125
 
 
 @dataclass(frozen=True)
 class StageConfig:
     init_epoch: int = 2001
+    split_epoch: int = 1001
 
 
 @dataclass(frozen=True)
 class Config:
     field: FieldConfig = dfield(default_factory=FieldConfig)
     geometry: GeometryConfig = dfield(default_factory=GeometryConfig)
+    texture: TextureConfig = dfield(default_factory=TextureConfig)
     render: RenderConfig = dfield(default_factory=RenderConfig)
     loss: LossConfig = dfield(default_factory=LossConfig)
     optim: OptimConfig = dfield(default_factory=OptimConfig)

@@ -3,13 +3,18 @@
 ``params_from_jax`` takes a tree shaped like the JAX training params —
 ``{"geometry": ..., "pose": ..., "material": ..., "light": ...}``, leaves
 numpy arrays (e.g. via ``jax.tree.map(np.asarray, params)``) — and returns
-the port's ``{"geometry": ..., "pose": ...}``. Geometry keeps its layout
-(MLP weights are ``[d_in, d_out]`` on both sides); material and light are
-not part of the port's init step and are dropped. ``perceptual_from_jax``
-turns ConvPerceptual's HWIO filters into PyTorch's OIHW.
+the same tree of tensors. Every part keeps its layout: MLP weights are
+``[d_in, d_out]`` on both sides, the material is ``encoder.table`` (one
+``[S, F]`` table per level) and ``net[i].w``, the light its ``base`` probe.
+A tree without material or light converts to one without.
+``texture_from_jax_config`` builds the port's ``MLPTexture3D`` from the JAX
+package's texture config and material range; ``perceptual_from_jax`` turns
+ConvPerceptual's HWIO filters into PyTorch's OIHW.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -24,8 +29,22 @@ def _to_torch(tree, device):
 
 
 def params_from_jax(tree: dict, device="cuda") -> dict:
-    return {"geometry": _to_torch(tree["geometry"], device),
-            "pose": _to_torch(tree["pose"], device)}
+    return {k: _to_torch(tree[k], device)
+            for k in ("geometry", "pose", "material", "light")
+            if tree.get(k) is not None}
+
+
+def texture_from_jax_config(jtex_cfg, min_max, device="cuda"):
+    """The port's ``MLPTexture3D`` for a texture config with the JAX
+    package's layout (duck-typed) and a (min [C], max [C]) material range."""
+    from d3human_tpu_torch.config import TextureConfig
+    from d3human_tpu_torch.models.texture import MLPTexture3D
+
+    cfg = TextureConfig(**{
+        f.name: getattr(jtex_cfg, f.name)
+        for f in dataclasses.fields(TextureConfig)})
+    return MLPTexture3D(cfg, (np.asarray(min_max[0], np.float32),
+                              np.asarray(min_max[1], np.float32)), device)
 
 
 def perceptual_from_jax(perc_params: dict, device="cuda") -> dict:

@@ -2,7 +2,8 @@
 and camera part of ``d3human_tpu/data/synthetic.py:make_scene``): the
 capsule body model, its canonical state, per-frame poses on a turntable,
 and a look-at camera. Ground-truth rendering is not ported; ``disc_target``
-gives the analytic mask/normal target of the JAX package's bench."""
+gives the analytic mask/normal target of the JAX package's bench, with
+its cloth/body split for the split stage."""
 
 from __future__ import annotations
 
@@ -67,9 +68,11 @@ def make_scene(resolution=(128, 128), n_frames: int = 4, seed: int = 0,
 
 
 def disc_target(resolution: Tuple[int, int], mvp: torch.Tensor,
-                device="cuda") -> dict:
+                campos: torch.Tensor, device="cuda") -> dict:
     """The JAX bench's synthetic target: an elliptic mask disc with a
-    striped rgb and a hemispherical normal map, zero background."""
+    striped rgb and a hemispherical normal map, zero background, and the
+    split stage's targets: the disc cut at ``yy > 0`` into a cloth and a
+    body part (image, mask and normals of each)."""
     H, W = resolution
     yy, xx = np.meshgrid(np.linspace(-1, 1, H), np.linspace(-1, 1, W),
                          indexing="ij")
@@ -82,10 +85,15 @@ def disc_target(resolution: Tuple[int, int], mvp: torch.Tensor,
     def t(a):
         return torch.as_tensor(np.ascontiguousarray(a, np.float32)).to(device)
 
-    return {"frame_idx": 0, "mvp": mvp,
-            "all_img": t(np.concatenate([rgb, mask], -1)),
-            "all_normal": t(nrm),
-            "background": torch.zeros((H, W, 3), device=device)}
+    target = {"frame_idx": 0, "mvp": mvp, "campos": campos,
+              "all_img": t(np.concatenate([rgb, mask], -1)),
+              "all_normal": t(nrm),
+              "background": torch.zeros((H, W, 3), device=device)}
+    cloth_a = mask * (yy > 0)[..., None]
+    for name, a in (("cloth", cloth_a), ("body", mask - cloth_a)):
+        target[f"{name}_img"] = t(np.concatenate([rgb * a, a], -1))
+        target[f"{name}_normal"] = t(nrm * a)
+    return target
 
 
 def capsule_sdf(verts: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,11 @@
-"""The implicit human model for the init stage: SDF MLP + mSDF G-Shell
-geometry posed by SMPL-X LBS (counterpart of the init-path part of
-``d3human_tpu/models/geometry.py:GeometryModel``).
+"""The implicit human model of the init and split stages: SDF MLP + mSDF
+G-Shell geometry posed by SMPL-X LBS (counterpart of the init- and
+split-path part of ``d3human_tpu/models/geometry.py:GeometryModel``).
 
 Parameters are a dict of tensors: ``sdf_net`` (MLP layers), ``msdf`` and
 ``deform`` per lattice vertex. Other geometry leaves converted from a JAX
 tree (``nonrigid``, ``body_nonrigid``, ``cond``, ``render_cond``,
-``fix_code``) ride along unread: the init step never reads them.
+``fix_code``) ride along unread: neither step reads them.
 """
 
 from __future__ import annotations
@@ -19,7 +19,9 @@ from d3human_tpu_torch.models.fields import MLP
 from d3human_tpu_torch.models.smplx.deformer import (
     CanonicalState, SMPLXDeformer,
 )
-from d3human_tpu_torch.ops.marching_tets import GShellMesh, gshell_extract
+from d3human_tpu_torch.ops.marching_tets import (
+    GShellMesh, gshell_extract, gshell_extract_pair,
+)
 from d3human_tpu_torch.ops.tet_grid import TetGrid
 
 Params = dict
@@ -96,6 +98,26 @@ class GeometryModel:
                             torch.zeros((), device=posed.device))
         return ExtractedMeshes(mesh=mesh, sdf=sdf, verts_posed=posed,
                                verts_template=mesh.verts)
+
+    def get_meshes_pair(self, params: Params, pose_params, frame_idx: int
+                        ) -> Tuple[ExtractedMeshes, ExtractedMeshes]:
+        """Both split-stage halves (cloth mSDF > 0, body mSDF < 0) over one
+        SDF query, one level-1 extraction and ONE LBS pose of the shared
+        vertex array; bit-identical to two ``get_meshes`` calls."""
+        v_def = self.deformed_grid(params)
+        sdf = self.query_sdf(params, v_def)
+        cloth, body, raw = gshell_extract_pair(
+            self.grid, v_def, sdf, params["msdf"], self.max_verts,
+            self.max_tets)
+        posed_raw = self.pose_verts(raw, pose_params, frame_idx)
+
+        def pack(mesh):
+            posed = torch.where(mesh.vert_valid[:, None], posed_raw,
+                                torch.zeros((), device=posed_raw.device))
+            return ExtractedMeshes(mesh=mesh, sdf=sdf, verts_posed=posed,
+                                   verts_template=mesh.verts)
+
+        return pack(cloth), pack(body)
 
     def pretrain_sdf(self, params: Params, target_sdf: torch.Tensor,
                      steps: int, lr: float = 1e-3) -> Tuple[Params, float]:

@@ -11,7 +11,7 @@ the JAX side. The convolution runs through
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -63,3 +63,29 @@ class ConvPerceptual:
         fy = self.features(params, y)
         losses = [(a - b).abs().mean() for a, b in zip(fx, fy)]
         return sum(losses) / len(losses)
+
+
+def random_crop_pair(generator: Optional[torch.Generator],
+                     img_a: torch.Tensor, img_b: torch.Tensor, crop: int,
+                     offsets: Optional[Tuple] = None):
+    """The same random crop of two NHWC images. ``offsets = (top, left)``
+    injects the corner; otherwise it is drawn from ``generator`` on the
+    images' device and applied by index (no host read of the draw)."""
+    H, W = img_a.shape[1:3]
+    ch, cw = min(crop, H), min(crop, W)
+    dev = img_a.device
+    if offsets is None:
+        top = torch.randint(0, max(H - crop, 1), (), generator=generator,
+                            device=dev)
+        left = torch.randint(0, max(W - crop, 1), (), generator=generator,
+                             device=dev)
+    else:
+        top, left = (torch.as_tensor(o, device=dev).long() for o in offsets)
+    # like a dynamic slice, a corner too far out is clamped into the image
+    rows = top.clamp(0, H - ch) + torch.arange(ch, device=dev)
+    cols = left.clamp(0, W - cw) + torch.arange(cw, device=dev)
+
+    def cut(img):
+        return img.index_select(1, rows).index_select(2, cols)
+
+    return cut(img_a), cut(img_b)

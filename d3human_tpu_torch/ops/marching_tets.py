@@ -1,7 +1,8 @@
 """G-Shell marching tetrahedra with static shapes.
 
 Counterpart of ``d3human_tpu/ops/marching_tets.py`` (``_gshell_level1`` /
-``_gshell_level2`` / ``gshell_extract`` and ``sdf_reg_loss``). Level 1 turns
+``_gshell_level2`` / ``gshell_extract`` / ``gshell_extract_pair`` and
+``sdf_reg_loss``). Level 1 turns
 SDF-crossing lattice edges into vertices (compacted to ``max_verts`` slots)
 and sign-mixed tets into 1-2 triangles (compacted to ``max_tets`` slots);
 level 2 re-cuts each level-1 polygon by the interpolated mSDF into the
@@ -140,6 +141,10 @@ class GShellMesh(NamedTuple):
     msdf_wt: torch.Tensor         # [MV]
     n_cross: torch.Tensor         # crossing-edge count
     n_valid_tets: torch.Tensor    # sign-mixed tet count
+
+    @property
+    def n_verts_watertight(self) -> int:
+        return self.verts_wt.shape[0]
 
 
 def _table(a, device):
@@ -343,6 +348,20 @@ def gshell_extract(grid: TetGrid, pos: torch.Tensor, sdf: torch.Tensor,
                    msdf_sign: float = 1.0) -> GShellMesh:
     lv1 = _gshell_level1(grid, pos, sdf, msdf, max_verts, max_tets)
     return _gshell_level2(lv1, msdf_sign)
+
+
+def gshell_extract_pair(grid: TetGrid, pos: torch.Tensor, sdf: torch.Tensor,
+                        msdf: torch.Tensor, max_verts: int, max_tets: int):
+    """Both split-stage cuts, cloth (mSDF > 0) and body (mSDF < 0), over
+    ONE level-1 extraction: the crossing detection, both compactions, the
+    row gathers and the boundary-vertex interpolation run once; only the
+    per-tet cut tables differ per sign. Bit-identical to two
+    ``gshell_extract`` calls (negation is exact and commutes with the
+    gathers). Returns (cloth, body, verts_aug_raw): the unmasked shared
+    vertex array, to be posed once and masked per half."""
+    lv1 = _gshell_level1(grid, pos, sdf, msdf, max_verts, max_tets)
+    return (_gshell_level2(lv1, 1.0), _gshell_level2(lv1, -1.0),
+            lv1["verts_aug_raw"])
 
 
 def sdf_reg_loss(sdf: torch.Tensor, grid: TetGrid) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """Masked mesh operations on fixed-capacity buffers (counterpart of the
-init-path part of ``d3human_tpu/ops/mesh_ops.py``)."""
+init- and split-path part of ``d3human_tpu/ops/mesh_ops.py``)."""
 
 from __future__ import annotations
 
@@ -7,7 +7,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from d3human_tpu_torch.ops.scatter import gather_rows
+from d3human_tpu_torch.ops.scatter import gather_rows, segment_add_rows
 
 
 def safe_normalize(x: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
@@ -22,6 +22,26 @@ def face_normals(verts: torch.Tensor, faces: torch.Tensor,
     v0, v1, v2 = tri[:, 0], tri[:, 1], tri[:, 2]
     n = torch.linalg.cross(v1 - v0, v2 - v0, dim=-1)
     return safe_normalize(n) if normalize else n
+
+
+def auto_normals(verts: torch.Tensor, faces: torch.Tensor,
+                 face_valid: Optional[torch.Tensor] = None,
+                 fn_raw: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Area-weighted vertex normals: the unnormalized face normals of all
+    three corners summed per vertex by ONE scatter (the scatter kernel in
+    the forward). Degenerate normals fall back to +z. ``fn_raw`` passes
+    precomputed unnormalized face normals."""
+    fn = face_normals(verts, faces, normalize=False) if fn_raw is None \
+        else fn_raw
+    if face_valid is not None:
+        fn = torch.where(face_valid[:, None], fn,
+                         torch.zeros((), device=fn.device))
+    v_nrm = segment_add_rows(fn.repeat(3, 1), faces.T.reshape(-1),
+                             verts.shape[0])
+    bad = (v_nrm * v_nrm).sum(-1, keepdim=True) <= 1e-20
+    v_nrm = torch.where(bad, torch.tensor([0.0, 0.0, 1.0],
+                                          device=fn.device), v_nrm)
+    return safe_normalize(v_nrm)
 
 
 def sample_points_on_mesh(

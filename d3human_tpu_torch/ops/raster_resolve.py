@@ -136,10 +136,13 @@ def resolve_tiles(tile_rows: torch.Tensor, tile: Tuple[int, int], ntx: int,
         NT, M, th, tw, ntx, out.data_ptr(),
         cuda_lib.stream_ptr(tile_rows.device)), "resolve_tiles")
     resolve_tiles.launches += 1
+    if floor is not None:
+        resolve_tiles.floor_launches += 1
     return out
 
 
-resolve_tiles.launches = 0
+resolve_tiles.launches = 0          # every launch of the kernel
+resolve_tiles.floor_launches = 0    # those with a floor (depth-peel steps)
 
 
 def unpack_keys(keys: torch.Tensor, tile_faces: torch.Tensor):

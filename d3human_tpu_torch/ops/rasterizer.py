@@ -1,17 +1,21 @@
-"""Differentiable rasterization on compacted pixels (counterpart of the
-init-path part of ``d3human_tpu/ops/rasterizer.py``).
+"""Differentiable rasterization, on compacted pixels for training and on
+the dense image for validation (counterpart of
+``d3human_tpu/ops/rasterizer.py`` without its oracle rasterizer).
 
 ``rasterize`` is hard visibility only (no gradients): per-face screen setup,
 tile binning by one stable sort of the int32 key ``(tile << 20) | zq`` that
 carries the face ids, a global list for oversize faces, and the per-tile
 resolve of ``ops/raster_resolve.py`` with the Pallas kernel's semantics
-(quantized-z then slot order). The XLA ``_resolve_tile`` path of the JAX
-package, which orders by float (z, id), is not ported.
+(quantized-z then slot order). ``layers > 1`` depth-peels: the binning runs
+once and the resolve repeats with the previous layer's keys as the floor.
+The XLA ``_resolve_tile`` path of the JAX package, which orders by float
+(z, id), is not ported.
 
 Gradients come from ``barycentrics_compact`` (perspective-correct
 barycentrics recomputed from clip-space corners at each covered pixel) and
 from the sparse silhouette antialiasing of ``aa_geometry_compact`` /
-``apply_aa_sparse``.
+``apply_aa_sparse``; the dense path has ``barycentrics`` / ``interpolate``
+and ``aa_weights`` / ``apply_aa`` over every neighbour pair.
 """
 
 from __future__ import annotations
@@ -184,24 +188,86 @@ def bin_faces(verts_clip: torch.Tensor, faces: torch.Tensor,
 def rasterize(verts_clip: torch.Tensor, faces: torch.Tensor,
               face_valid: torch.Tensor, resolution: Tuple[int, int],
               tile: Tuple[int, int] = (8, 128), max_faces_per_tile: int = 896,
-              bin_expand: int = 8, max_global: int = 128) -> Rast:
-    """Tile-binned z-buffer rasterization (hard visibility, no gradients)."""
+              bin_expand: int = 8, max_global: int = 128, layers: int = 1):
+    """Tile-binned z-buffer rasterization (hard visibility, no gradients).
+
+    ``layers > 1`` depth-peels: layer k+1 is each pixel's nearest covering
+    face whose key lies strictly above layer k's, so a pixel that misses
+    in one layer misses in all later ones. Returns a tuple of ``Rast``
+    near-to-far when ``layers > 1``, a single ``Rast`` otherwise."""
     H, W = resolution
     th, tw = tile
     b = bin_faces(verts_clip, faces, face_valid, resolution, tile,
                   max_faces_per_tile, bin_expand, max_global)
     nty, ntx, NT = b.grid
-    F = faces.shape[0]
-    keys = resolve_tiles(b.tile_rows, tile, ntx)
-    ids, zs = unpack_keys(keys, b.all_faces.clamp(max=F - 1))
+    tile_faces = b.all_faces.clamp(max=faces.shape[0] - 1)
+    n_max_tile = (b.starts[1:] - b.starts[:-1]).max()
 
     def untile(x):
         return x.reshape(nty, ntx, th, tw).permute(0, 2, 1, 3).reshape(
             nty * th, ntx * tw)[:H, :W]
 
-    return Rast(tri_id=untile(ids), zbuf=untile(zs),
-                n_max_tile=(b.starts[1:] - b.starts[:-1]).max(),
-                n_big=b.n_big)
+    rasts, keys = [], None
+    for _ in range(layers):
+        keys = resolve_tiles(b.tile_rows, tile, ntx, floor=keys)
+        ids, zs = unpack_keys(keys, tile_faces)
+        rasts.append(Rast(tri_id=untile(ids), zbuf=untile(zs),
+                          n_max_tile=n_max_tile, n_big=b.n_big))
+    return rasts[0] if layers == 1 else tuple(rasts)
+
+
+# ---------------------------------------------------------------- dense
+
+def _pixel_centers(resolution, device):
+    """(x, y) pixel-centre coordinates, each [H, W]."""
+    H, W = resolution
+    y, x = torch.meshgrid(
+        torch.arange(H, dtype=torch.float32, device=device) + 0.5,
+        torch.arange(W, dtype=torch.float32, device=device) + 0.5,
+        indexing="ij")
+    return x, y
+
+
+def barycentrics(verts_clip: torch.Tensor, faces: torch.Tensor, rast: Rast,
+                 resolution):
+    """Perspective-correct barycentrics [H, W, 3] (zero off the mesh) and
+    the coverage mask [H, W]; differentiable in ``verts_clip``."""
+    fid = torch.clamp_min(rast.tri_id - 1, 0)
+    tri = verts_clip[faces[fid.long()].long()]                  # [H, W, 3, 4]
+    px, py = _pixel_centers(resolution, verts_clip.device)
+    bary = barycentrics_compact(tri, torch.stack([px, py], dim=-1),
+                                resolution)
+    mask = rast.tri_id > 0
+    return torch.where(mask[..., None], bary,
+                       torch.zeros((), device=bary.device)), mask
+
+
+def interpolate(attrs: torch.Tensor, bary: torch.Tensor,
+                faces: torch.Tensor, rast: Rast) -> torch.Tensor:
+    """[V, C] vertex attributes -> [H, W, C], zero off the mesh."""
+    fid = torch.clamp_min(rast.tri_id - 1, 0)
+    fa = attrs[faces[fid.long()].long()]                        # [H, W, 3, C]
+    out = (fa * bary[..., None]).sum(-2)
+    return torch.where((rast.tri_id > 0)[..., None], out,
+                       torch.zeros((), device=out.device))
+
+
+def interpolate_face_attr(face_attrs: torch.Tensor,
+                          rast: Rast) -> torch.Tensor:
+    """Flat per-face attributes [F, C] -> [H, W, C], zero off the mesh."""
+    fid = torch.clamp_min(rast.tri_id - 1, 0)
+    return torch.where((rast.tri_id > 0)[..., None],
+                       face_attrs[fid.long()],
+                       torch.zeros((), device=face_attrs.device))
+
+
+def avg_pool_nhwc(img: torch.Tensor, factor: int) -> torch.Tensor:
+    if factor == 1:
+        return img
+    H, W, C = img.shape[-3:]
+    x = img.reshape(*img.shape[:-3], H // factor, factor, W // factor,
+                    factor, C)
+    return x.mean(dim=(-4, -2))
 
 
 # ---------------------------------------------------------------- compacted
@@ -362,6 +428,47 @@ def apply_aa_sparse(img: torch.Tensor, pairs) -> torch.Tensor:
         flat = flat.index_add(0, torch.where(ia < n, ia, n), d_a)
         flat = flat.index_add(0, torch.where(ib < n, ib, n), d_b)
     return flat[:n].reshape(H, W, C)
+
+
+def aa_weights(verts_clip: torch.Tensor, faces: torch.Tensor, rast: Rast,
+               resolution):
+    """Dense AA blend geometry for both pair directions: every neighbour
+    pair whose ids differ and of which one is covered goes through the
+    pair geometry of ``aa_geometry_compact``. Per axis (1, then 0):
+    (a_wins, spill, recede), each [H, W-1, 1] or [H-1, W, 1]."""
+    H, W = resolution
+    out = []
+    for axis in (1, 0):
+        idm = rast.tri_id
+        ida, idb = ((idm[:, :-1], idm[:, 1:]) if axis == 1
+                    else (idm[:-1, :], idm[1:, :]))
+        pvalid = ((ida != idb) & ((ida > 0) | (idb > 0))).reshape(-1)
+        pidx = torch.arange(pvalid.shape[0], device=pvalid.device)
+        _, _, a_wins, spill, recede = aa_geometry_compact(
+            verts_clip, faces, rast, pidx, pvalid, resolution, axis)
+        shape = (*ida.shape, 1)
+        out.append((a_wins.reshape(shape), spill.reshape(shape),
+                    recede.reshape(shape)))
+    return tuple(out)
+
+
+def apply_aa(color: torch.Tensor, weights) -> torch.Tensor:
+    """Blend one [H, W, C] buffer with dense AA weights (both directions);
+    a pixel accumulates the corrections of all its pairs."""
+    for axis, (a_wins, spill, recede) in zip((1, 0), weights):
+        ca, cb = ((color[:, :-1], color[:, 1:]) if axis == 1
+                  else (color[:-1, :], color[1:, :]))
+        wcol = torch.where(a_wins, ca, cb)
+        lcol = torch.where(a_wins, cb, ca)
+        d_l = (wcol - lcol) * spill
+        d_w = (lcol - wcol) * recede
+        d_a = torch.where(a_wins, d_w, d_l)
+        d_b = torch.where(a_wins, d_l, d_w)
+        pad_a = (0, 0, 0, 1) if axis == 1 else (0, 0, 0, 0, 0, 1)
+        pad_b = (0, 0, 1, 0) if axis == 1 else (0, 0, 0, 0, 1, 0)
+        color = color + (torch.nn.functional.pad(d_a, pad_a)
+                         + torch.nn.functional.pad(d_b, pad_b))
+    return color
 
 
 def visible_face_mask(rast: Rast, n_faces: int) -> torch.Tensor:

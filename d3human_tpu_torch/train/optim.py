@@ -1,14 +1,18 @@
-"""Init-stage optimizer (counterpart of ``d3human_tpu/train/optim.py``):
-per-group Adam with the reference's LambdaLR schedule (linear warmup, then
-10^(-(it - warmup) * 2e-4)) and optional per-group global-norm clipping of
-the geometry groups.
+"""Per-group Adam of the init and split stages (counterpart of
+``d3human_tpu/train/optim.py``): the reference's LambdaLR schedule (linear
+warmup, then 10^(-(it - warmup) * 2e-4)), per-stage learning-rate groups of
+the geometry leaves with optional per-group global-norm clipping, and the
+gradient pre-scaling of the hash tables and the light.
 
-Groups for the init stage (ref train.py:599-614): ``geometry/deform`` at
-lr_pos, ``geometry/sdf_net`` at lr_pos * sdf_lr_mult, other geometry leaves
-at lr_pos * 1e-3, ``geometry/msdf`` and the nonrigid MLPs frozen; the pose
-tensors at lr_pos * 1e-3 without clipping. Material and light parameters
-get a zero gradient in the lean init step, so Adam would leave them
-unchanged; the port holds them frozen.
+Geometry groups by name (ref train.py:599-614 and :895-901):
+  init   ``deform`` x1, ``sdf_net`` x sdf_lr_mult, ``msdf`` and the
+         nonrigid MLPs frozen, other leaves x1e-3;
+  split  ``deform`` x1, ``msdf`` x1, nonrigid x1e-3, ``sdf_net`` frozen,
+         other leaves x1e-2.
+The pose tensors run at lr_pos * 1e-3, the material at lr_mat with its
+hash-table gradients times ``hashgrid_grad_scale``, the light at lr_lgt
+with its gradient times ``light_grad_scale``; none of the three is
+clipped. A frozen leaf gets no update at all.
 """
 
 from __future__ import annotations
@@ -56,39 +60,74 @@ def named_leaves(tree, prefix: str = "") -> Iterator[Tuple[str,
             yield from named_leaves(v, f"{prefix}/{i}")
 
 
-def init_label(path: str) -> str:
-    """LR group of a parameter path in the init stage."""
-    if path.startswith("pose/"):
-        return "pose"
-    if not path.startswith("geometry/"):
-        return "frozen"
-    if "deform" in path and "nonrigid" not in path:
-        return "x1"
-    if "sdf_net" in path:
-        return "xsdf"
-    if "msdf" in path or "nonrigid" in path:
-        return "frozen"
-    return "x1e-3"
+def geometry_label(stage: str, path: str) -> str:
+    """LR group of a geometry parameter path in ``stage``."""
+    if stage == "init":
+        if "deform" in path and "nonrigid" not in path:
+            return "x1"
+        if "sdf_net" in path:
+            return "xsdf"
+        if "msdf" in path or "nonrigid" in path:
+            return "frozen"
+        return "x1e-3"
+    if stage == "split":
+        if "deform" in path and "nonrigid" not in path:
+            return "x1"
+        if "msdf" in path:
+            return "x1"
+        if "nonrigid" in path:
+            return "x1e-3"
+        if "sdf_net" in path:
+            return "frozen"
+        return "x1e-2"
+    raise ValueError(f"stage {stage!r}: the port has the init and split "
+                     "stages")
 
 
-class InitAdam:
+def param_label(stage: str, path: str) -> str:
+    top = path.split("/", 1)[0]
+    if top in ("pose", "material", "light"):
+        return top
+    if top == "geometry":
+        return geometry_label(stage, path)
+    return "frozen"
+
+
+class StageAdam:
     """Adam(b1=0.9, b2=0.999, eps=1e-8) per group, with the learning rate
     of the group's schedule at the step count before the update (0 at step
-    0) and bias correction at the count after it, as optax does."""
+    0) and bias correction at the count after it, as optax does.
+
+    A leaf whose gradient is missing counts as a zero gradient. While such
+    a leaf has no moments yet, Adam's update of it is exactly zero, so it
+    is skipped and allocates nothing (the light under albedo-only shading,
+    the material in the unshaded init step)."""
 
     B1, B2, EPS = 0.9, 0.999, 1e-8
 
-    def __init__(self, params: dict, lr_pos: float, warmup_iter: int,
-                 clip_max_norm: float = 0.0, sdf_lr_mult: float = 1e-2):
-        mults = {"x1": 1.0, "xsdf": sdf_lr_mult, "x1e-3": 1e-3, "pose": 1e-3}
+    def __init__(self, stage: str, params: dict, lr_pos: float,
+                 lr_mat: float, lr_lgt: float, warmup_iter: int,
+                 clip_max_norm: float = 0.0, sdf_lr_mult: float = 1e-2,
+                 hashgrid_grad_scale: float = 0.125,
+                 light_grad_scale: float = 64.0):
+        geo = {"x1": 1.0, "xsdf": sdf_lr_mult, "x1e-2": 1e-2, "x1e-3": 1e-3}
         self.groups: Dict[str, dict] = {
-            name: {"lr": lr_pos * m, "paths": [],
-                   "clip": clip_max_norm if name != "pose" else 0.0}
-            for name, m in mults.items()}
+            name: {"lr": lr_pos * m, "paths": [], "clip": clip_max_norm}
+            for name, m in geo.items()}
+        self.groups["pose"] = {"lr": lr_pos * 1e-3, "paths": [], "clip": 0.0}
+        self.groups["material"] = {"lr": lr_mat, "paths": [], "clip": 0.0}
+        self.groups["light"] = {"lr": lr_lgt, "paths": [], "clip": 0.0}
+        self.grad_scale: Dict[str, float] = {}
         for path, t in named_leaves(params):
-            label = init_label(path)
-            if label != "frozen" and t.is_floating_point():
-                self.groups[label]["paths"].append(path)
+            label = param_label(stage, path)
+            if label == "frozen" or not t.is_floating_point():
+                continue
+            self.groups[label]["paths"].append(path)
+            if label == "material" and "table" in path:
+                self.grad_scale[path] = hashgrid_grad_scale
+            elif label == "light":
+                self.grad_scale[path] = light_grad_scale
+        self.stage = stage
         self.warmup_iter = warmup_iter
         self.count = 0
         self.mu: Dict[str, torch.Tensor] = {}
@@ -97,20 +136,26 @@ class InitAdam:
     def trainable_paths(self) -> List[str]:
         return [p for g in self.groups.values() for p in g["paths"]]
 
+    def _scaled_grad(self, path, grad, leaf):
+        if grad is None:
+            return torch.zeros_like(leaf)
+        scale = self.grad_scale.get(path)
+        return grad if scale is None else grad * scale
+
     @torch.no_grad()
     def step(self, params: dict, grads: Dict[str, Optional[torch.Tensor]]
              ) -> None:
-        """Update ``params`` in place from ``grads`` (path -> gradient; a
-        missing or None gradient counts as zero)."""
+        """Update ``params`` in place from ``grads`` (path -> gradient)."""
         leaves = dict(named_leaves(params))
         t = self.count + 1
         bc1, bc2 = 1.0 - self.B1 ** t, 1.0 - self.B2 ** t
         for g in self.groups.values():
-            paths = g["paths"]
+            paths = [p for p in g["paths"]
+                     if grads.get(p) is not None or p in self.mu]
             if not paths:
                 continue
-            gs = [grads.get(p) if grads.get(p) is not None
-                  else torch.zeros_like(leaves[p]) for p in paths]
+            gs = [self._scaled_grad(p, grads.get(p), leaves[p])
+                  for p in paths]
             if g["clip"] > 0:
                 norm = torch.sqrt(sum((x * x).sum() for x in gs))
                 keep = norm < g["clip"]

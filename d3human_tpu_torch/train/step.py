@@ -1,6 +1,7 @@
-"""Init-stage training step (counterpart of ``d3human_tpu/train/step.py:
-make_train_step("init")``): loss tick, backward, three-group Adam, and the
-post-step clamps. PyTorch runs it eagerly; parameters update in place."""
+"""Training steps of the init and split stages (counterpart of
+``d3human_tpu/train/step.py:make_train_step``): loss tick, backward,
+per-group Adam, and the post-step clamps. PyTorch runs it eagerly;
+parameters update in place."""
 
 from __future__ import annotations
 
@@ -12,39 +13,62 @@ import torch
 from d3human_tpu_torch.config import Config
 from d3human_tpu_torch.models.geometry import GeometryModel
 from d3human_tpu_torch.models.perceptual import ConvPerceptual
+from d3human_tpu_torch.render import light as light_mod
 from d3human_tpu_torch.train import losses as L
-from d3human_tpu_torch.train.optim import InitAdam, named_leaves, resolve_lrs
+from d3human_tpu_torch.train.optim import StageAdam, named_leaves, resolve_lrs
 
 
 @dataclasses.dataclass
 class TrainState:
-    params: dict          # {"geometry": ..., "pose": ...}
-    opt: InitAdam
+    params: dict          # {"geometry", "pose"[, "material", "light"]}
+    opt: StageAdam
     step: int = 0
 
 
-def init_state(params: dict, cfg: Config) -> TrainState:
-    lr_pos, _, _ = resolve_lrs(cfg.optim.learning_rate)
-    lr_pos *= cfg.optim.init_lr_scale
-    opt = InitAdam(params, lr_pos, cfg.optim.warmup_iter,
-                   clip_max_norm=cfg.optim.clip_max_norm,
-                   sdf_lr_mult=cfg.optim.sdf_lr_mult)
+def init_state(stage: str, params: dict, cfg: Config) -> TrainState:
+    lr_pos, lr_mat, lr_lgt = resolve_lrs(cfg.optim.learning_rate)
+    if stage == "init":
+        lr_pos *= cfg.optim.init_lr_scale
+    opt = StageAdam(stage, params, lr_pos, lr_mat, lr_lgt,
+                    cfg.optim.warmup_iter,
+                    clip_max_norm=cfg.optim.clip_max_norm,
+                    sdf_lr_mult=cfg.optim.sdf_lr_mult,
+                    hashgrid_grad_scale=cfg.optim.hashgrid_grad_scale,
+                    light_grad_scale=cfg.optim.light_grad_scale)
     return TrainState(params=params, opt=opt, step=0)
 
 
-def loss_and_grads(model: GeometryModel, perceptual: ConvPerceptual,
-                   perc_params, params: dict, target: dict, it: int,
-                   cfg: Config, paths, raster_opts=None, generator=None,
-                   eik_draws=None):
-    """(loss dict, {path: grad or None}) of one init tick w.r.t. ``paths``."""
+def stage_tick(stage: str, model: GeometryModel, tex_module,
+               perceptual: ConvPerceptual, perc_params, params: dict,
+               target: dict, it: int, cfg: Config, raster_opts=None,
+               generator=None, draws=None) -> Dict[str, torch.Tensor]:
+    """The loss dict of one iteration of ``stage``. ``draws`` injects the
+    random numbers of the tick (see ``tick_init`` / ``tick_split``)."""
+    g, pose, mat = params["geometry"], params["pose"], params.get("material")
+    if stage == "init":
+        return L.tick_init(generator, model, g, pose, tex_module, mat,
+                           perceptual, perc_params, target, it, cfg,
+                           raster_opts, draws=draws)
+    if stage == "split":
+        return L.tick_split(generator, model, g, pose, tex_module, mat,
+                            perceptual, perc_params, target, it, cfg,
+                            raster_opts, draws=draws)
+    raise ValueError(f"stage {stage!r}: the port has the init and split "
+                     "stages")
+
+
+def loss_and_grads(stage: str, model: GeometryModel, tex_module,
+                   perceptual: ConvPerceptual, perc_params, params: dict,
+                   target: dict, it: int, cfg: Config, paths,
+                   raster_opts=None, generator=None, draws=None):
+    """(loss dict, {path: grad or None}) of one tick w.r.t. ``paths``."""
     leaves = dict(named_leaves(params))
     for p in paths:
         leaves[p].requires_grad_(True)
     try:
-        out = L.tick_init(model, params["geometry"], params["pose"],
-                          perceptual, perc_params, target, it, cfg,
-                          raster_opts, generator=generator,
-                          eik_draws=eik_draws)
+        out = stage_tick(stage, model, tex_module, perceptual, perc_params,
+                         params, target, it, cfg, raster_opts, generator,
+                         draws)
         grads = torch.autograd.grad(out["total"], [leaves[p] for p in paths],
                                     allow_unused=True)
     finally:
@@ -55,21 +79,34 @@ def loss_and_grads(model: GeometryModel, perceptual: ConvPerceptual,
     return metrics, dict(zip(paths, grads))
 
 
-def make_train_step(model: GeometryModel, perceptual: ConvPerceptual,
-                    perc_params, cfg: Config,
+def _post_step(params: dict, model: GeometryModel) -> None:
+    model.clamp_params(params["geometry"])
+    if params.get("light") is not None:
+        light_mod.clamp_(params["light"])
+
+
+def make_train_step(stage: str, model: GeometryModel, tex_module,
+                    perceptual: ConvPerceptual, perc_params, cfg: Config,
                     raster_opts: Optional[dict] = None
                     ) -> Callable[..., Tuple[TrainState, Dict]]:
-    """step_fn(state, target, generator) -> (state, metrics)."""
+    """step_fn(state, target, generator, draws=None) -> (state, metrics)."""
 
     def step_fn(state: TrainState, target: dict,
-                generator: Optional[torch.Generator] = None, eik_draws=None):
+                generator: Optional[torch.Generator] = None, draws=None):
         metrics, grads = loss_and_grads(
-            model, perceptual, perc_params, state.params, target,
-            state.step, cfg, state.opt.trainable_paths(), raster_opts,
-            generator, eik_draws)
+            stage, model, tex_module, perceptual, perc_params, state.params,
+            target, state.step, cfg, state.opt.trainable_paths(),
+            raster_opts, generator, draws)
         state.opt.step(state.params, grads)
-        model.clamp_params(state.params["geometry"])
+        _post_step(state.params, model)
         state.step += 1
+        if stage == "split":
+            # mSDF gradient telemetry: the garment/body boundary only moves
+            # if gradient reaches the mSDF field
+            gm = grads.get("geometry/msdf")
+            if gm is not None:
+                metrics["msdf_grad_norm"] = torch.sqrt((gm * gm).sum())
+                metrics["msdf_grad_absmax"] = gm.abs().max()
         return state, metrics
 
     return step_fn

@@ -53,7 +53,10 @@ def test_cuda_first_k_equals_plain(cuda_device, n, k, p):
     (874_800, 1_048_576, 8, False, 0.0),
     (874_800, 1_048_576, 8, False, 0.75),   # padded slots on one vertex
     (50_000, 2000, 16, False, 0.0),
-    (291_600, 1_166_400, 4, True, 0.0)])
+    (291_600, 1_166_400, 4, True, 0.0),
+    (874_800, 1_048_576, 14, False, 0.75),  # shaded fused vertex gather
+    (291_600, 357_911, 16, False, 0.25),    # corner-packed hash level
+    (583_200, 1_166_400, 4, False, 0.0)])   # fused 4-tap bilinear gather
 def test_cuda_scatter_equals_plain_and_deterministic(cuda_device, N, V, C,
                                                      srt, hot):
     """The plain version repeats the kernel's additions in its order, so
@@ -88,9 +91,43 @@ def test_cuda_resolve_equals_plain(cuda_device, peel):
 
 
 @pytest.mark.cuda
+def test_cuda_rasterize_layers_equal_plain(cuda_device, monkeypatch):
+    """``rasterize(layers=3)`` with the kernel against the same peel loop
+    over the plain resolve, on the same card tensors: ids and depths of
+    every layer exact, 3 launches of which 2 with a floor."""
+    from d3human_tpu_torch.ops import rasterizer
+
+    rng = np.random.default_rng(7)
+    F = 600
+    V = 3 * F
+    clip = np.concatenate([rng.uniform(-0.9, 0.9, (V, 2)),
+                           rng.uniform(0.2, 0.8, (V, 1)), np.ones((V, 1))],
+                          1).astype(np.float32)
+    args = (torch.as_tensor(clip).to(cuda_device),
+            torch.as_tensor(rng.integers(0, V, (F, 3)).astype(np.int32)).to(
+                cuda_device),
+            torch.ones(F, dtype=torch.bool, device=cuda_device), (64, 256))
+    rt = raster_resolve.resolve_tiles
+    before = (rt.launches, rt.floor_launches)
+    got = rasterizer.rasterize(*args, layers=3)
+    assert (rt.launches - before[0], rt.floor_launches - before[1]) == (3, 2)
+    monkeypatch.setattr(
+        rasterizer, "resolve_tiles",
+        lambda rows, tile, ntx, floor=None:
+        raster_resolve.resolve_tiles_plain(rows, tile, ntx, floor))
+    want = rasterizer.rasterize(*args, layers=3)
+    assert (rt.launches - before[0], rt.floor_launches - before[1]) == (3, 2)
+    hits = [int((lay.tri_id > 0).sum()) for lay in got]
+    assert hits[0] > hits[1] > hits[2] > 0
+    for a, b in zip(got, want):
+        assert torch.equal(a.tri_id, b.tri_id)
+        assert torch.equal(a.zbuf, b.zbuf)
+
+
+@pytest.mark.cuda
 def test_cuda_small_tick_matches_cpu(cuda_device):
-    """The whole init tick on the tiny chip_smoke scene: kernels on the
-    card against the plain versions on the CPU."""
+    """The whole init tick and split tick on the tiny chip_smoke scene:
+    kernels on the card against the plain versions on the CPU."""
     import chip_smoke
 
     chip_smoke.phase_small(seed_steps=30)

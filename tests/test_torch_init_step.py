@@ -42,10 +42,11 @@ def test_tick_init_matches_jax(both):
     j, p = both
     want = jax.jit(lambda pr: {k: v for k, v in _jax_tick(j, pr).items()
                                if jnp.ndim(v) == 0})(j["params"])
-    got = tick_init(p["model"], p["params"]["geometry"], p["params"]["pose"],
+    got = tick_init(None, p["model"], p["params"]["geometry"],
+                    p["params"]["pose"], p["tex"], p["params"]["material"],
                     p["perceptual"], p["perc_params"], p["target"], IT,
-                    p["cfg"], RASTER_OPTS,
-                    eik_draws=eik_draws(p["cfg"].geometry.n_eikonal_samples))
+                    p["cfg"], RASTER_OPTS, draws={"eik": eik_draws(
+                        p["cfg"].geometry.n_eikonal_samples)})
     assert set(got) == set(want)
     for k in want:
         w, g = float(want[k]), float(got[k].detach())
@@ -56,23 +57,66 @@ def test_tick_init_matches_jax(both):
     assert float(got["n_cross"]) > 0
 
 
+def test_tick_init_with_shading_matches_jax():
+    """init_shading on: the render samples the texture (shaded compacted
+    branch without smoothness consumers) and img_loss gains its tonemapped
+    image term. Counters exact, scalars rel 5e-3; the total does not move."""
+    import dataclasses
+
+    from d3human_tpu.train import losses as JL
+    from d3human_tpu_torch.train.losses import tick_init
+    from torch_parity import init_draws, jax_split_small
+
+    j = jax_split_small()
+    j["cfg"] = dataclasses.replace(j["cfg"], render=dataclasses.replace(
+        j["cfg"].render, init_shading=True))
+    p = port_small(j)
+    assert p["cfg"].render.init_shading
+    want = jax.jit(lambda pr: {
+        k: v for k, v in JL.tick_init(
+            jax.random.PRNGKey(KEY), j["model"], pr["geometry"], pr["pose"],
+            j["tex"], pr["material"], j["perceptual"], j["perc_params"],
+            j["target"], jnp.int32(IT), j["cfg"], JAX_RASTER_OPTS).items()
+        if jnp.ndim(v) == 0})(j["params"])
+
+    def tick(cfg):
+        with torch.no_grad():
+            return tick_init(None, p["model"], p["params"]["geometry"],
+                             p["params"]["pose"], p["tex"],
+                             p["params"]["material"], p["perceptual"],
+                             p["perc_params"], p["target"], IT, cfg,
+                             RASTER_OPTS, draws=init_draws(j["cfg"]))
+
+    got = tick(p["cfg"])
+    assert set(got) == set(want)
+    for k in want:
+        w, g = float(want[k]), float(got[k])
+        if k in EXACT:
+            assert g == w, (k, g, w)
+        else:
+            assert g == pytest.approx(w, rel=5e-3, abs=1e-5), (k, g, w)
+    lean = tick(dataclasses.replace(p["cfg"], render=dataclasses.replace(
+        p["cfg"].render, init_shading=False)))
+    assert float(got["img_loss"]) > float(lean["img_loss"]) > 0
+    assert float(got["total"]) == pytest.approx(float(lean["total"]),
+                                                rel=1e-6)
+
+
 def test_init_gradients_match_jax(both):
     """Every gradient leaf of the init step within rel-L2 1e-3."""
     from d3human_tpu_torch.train.optim import named_leaves
     from d3human_tpu_torch.train.step import loss_and_grads
 
     j, p = both
-    sub = {"geometry": j["params"]["geometry"], "pose": j["params"]["pose"]}
-    jg = jax.jit(jax.grad(lambda pr: _jax_tick(
-        j, dict(j["params"], **pr))["total"]))(sub)
+    jg = jax.jit(jax.grad(lambda pr: _jax_tick(j, pr)["total"]))(j["params"])
     jg = {k: np.array(v) for k, v in named_leaves(
         jax.tree.map(lambda a: torch.as_tensor(np.array(a)), jg))}
     paths = [k for k, _ in named_leaves(p["params"])]
     assert set(paths) == set(jg)
     _, tg = loss_and_grads(
-        p["model"], p["perceptual"], p["perc_params"], p["params"],
-        p["target"], IT, p["cfg"], paths, RASTER_OPTS,
-        eik_draws=eik_draws(p["cfg"].geometry.n_eikonal_samples))
+        "init", p["model"], p["tex"], p["perceptual"], p["perc_params"],
+        p["params"], p["target"], IT, p["cfg"], paths, RASTER_OPTS,
+        draws={"eik": eik_draws(p["cfg"].geometry.n_eikonal_samples)})
     nonzero = 0
     for k in paths:
         want = jg[k]
@@ -92,10 +136,10 @@ def test_init_total_decreases_over_20_steps():
     from d3human_tpu_torch.train.step import init_state, make_train_step
 
     p = port_small(jax_small())
-    state = init_state(p["params"], p["cfg"])
+    state = init_state("init", p["params"], p["cfg"])
     state.step = p["cfg"].optim.warmup_iter
-    step_fn = make_train_step(p["model"], p["perceptual"], p["perc_params"],
-                              p["cfg"], RASTER_OPTS)
+    step_fn = make_train_step("init", p["model"], p["tex"], p["perceptual"],
+                              p["perc_params"], p["cfg"], RASTER_OPTS)
     gen = torch.Generator().manual_seed(0)
     metrics = []
     for _ in range(20):
@@ -107,15 +151,29 @@ def test_init_total_decreases_over_20_steps():
 
 
 def test_chip_smoke_scene_rehearsal():
-    """chip_smoke.py's scene builder and step at its CPU-sized scale."""
+    """chip_smoke.py's scene set-up at its CPU-sized scale, through every
+    path the script drives: an init step, a split step, the ticks with the
+    script's injected draws, and the checked validation render."""
     import chip_smoke
-    from d3human_tpu_torch.train.step import make_train_step
+    from d3human_tpu_torch.train.step import stage_tick
 
     sc = chip_smoke.build_scene("tiny", "cpu", seed_steps=30)
-    step_fn = make_train_step(sc["model"], sc["perceptual"], sc["perc_params"],
-                              sc["cfg"], sc["raster_opts"])
-    state, m = step_fn(sc["state"], sc["target"],
-                       torch.Generator().manual_seed(0))
-    assert state.step == 1
-    assert float(m["n_cross"]) > 0 and float(m["cap_cov"]) > 0
-    assert all(math.isfinite(float(v)) for v in m.values())
+    gen = torch.Generator().manual_seed(0)
+    for stage, key in (("init", "state"), ("split", "split_state")):
+        state, m = chip_smoke.stage_step_fn(sc, stage)(sc[key], sc["target"],
+                                                       gen)
+        assert state.step == 1
+        chip_smoke.check_step_metrics(stage, chip_smoke.scalars(m), stage)
+        with torch.no_grad():
+            out = chip_smoke.scalars(stage_tick(
+                stage, sc["model"], sc["tex"], sc["perceptual"],
+                sc["perc_params"], sc["params"], sc["target"], 7, sc["cfg"],
+                sc["raster_opts"],
+                draws=chip_smoke.tick_draws(sc["cfg"], stage, seed=1)))
+        assert all(math.isfinite(v) for v in out.values())
+    assert "msdf_grad_norm" in m
+    for name, sign in (("cloth", 1.0), ("body", -1.0)):
+        info = chip_smoke.check_validation(
+            sc, name, *chip_smoke.validation_render(sc, sign, gen))
+        assert len(info["layer_pixels"]) == chip_smoke.VAL_LAYERS
+        assert 0 < info["alpha_mean"] < 1

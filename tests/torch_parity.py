@@ -1,7 +1,7 @@
 """Shared set-up of the PyTorch-port parity tests: the JAX package's small
 scene (``__graft_entry__._small_setup``) and its counterpart in the port,
-built from the same numbers (parameters converted, eikonal draws
-injected)."""
+built from the same numbers (parameters converted, random draws computed
+with JAX from the same keys and injected)."""
 
 import dataclasses
 
@@ -33,10 +33,38 @@ def jax_small():
                 params=params, target=scene.frame_target(0))
 
 
+def jax_split_small():
+    """``jax_small`` set up for the split stage: a texture with one dense
+    and one hashed level, a perceptual crop smaller than the image, and an
+    mSDF field cut at mid height so both halves carry faces."""
+    from d3human_tpu.models.texture import MLPTexture3D
+
+    j = jax_small()
+    cfg = j["cfg"]
+    cfg = dataclasses.replace(
+        cfg,
+        texture=dataclasses.replace(cfg.texture, log2_hashmap_size=13),
+        loss=dataclasses.replace(cfg.loss, perceptual_crop=24))
+    tex = MLPTexture3D(cfg.texture, (jnp.zeros((6,)), jnp.ones((6,))))
+    assert tex.encoder.dense == (True, False)
+    params = dict(j["params"])
+    params["material"] = tex.init(jax.random.PRNGKey(11))
+    # the reference's table init is ~1e-4, which leaves the albedo flat at
+    # 0.5: scale it up so the texture carries signal
+    params["material"]["encoder"]["table"] = [
+        t * 3e3 for t in params["material"]["encoder"]["table"]]
+    params["geometry"] = dict(params["geometry"])
+    params["geometry"]["msdf"] = jnp.tanh(
+        3.0 * j["model"].grid.verts[:, 1] + 0.2)
+    return dict(j, cfg=cfg, tex=tex, params=params)
+
+
 def port_small(j, device="cpu"):
     """The port's objects holding the same numbers as ``jax_small``."""
     from d3human_tpu_torch.config import from_jax_config
-    from d3human_tpu_torch.convert import params_from_jax, perceptual_from_jax
+    from d3human_tpu_torch.convert import (
+        params_from_jax, perceptual_from_jax, texture_from_jax_config,
+    )
     from d3human_tpu_torch.data.synthetic import make_scene
     from d3human_tpu_torch.models.geometry import GeometryModel
     from d3human_tpu_torch.models.perceptual import ConvPerceptual
@@ -51,15 +79,13 @@ def port_small(j, device="cpu"):
                          y_offset=0.0, scale=1.0, device=device)
     model = GeometryModel(cfg, grid, scene.deformer, scene.canon)
     perceptual = ConvPerceptual(channels=j["perceptual"].channels)
-    t = j["target"]
-    target = {
-        "frame_idx": int(t["frame_idx"]),
-        "mvp": torch.as_tensor(np.array(t["mvp"])).to(device),
-        "all_img": torch.as_tensor(np.array(t["all_img"])).to(device),
-        "all_normal": torch.as_tensor(np.array(t["all_normal"])).to(device),
-        "background": torch.as_tensor(np.array(t["background"])).to(device),
-    }
+    target = {k: torch.as_tensor(np.array(v)).to(device)
+              for k, v in j["target"].items()}
+    target["frame_idx"] = int(j["target"]["frame_idx"])
+    tex = texture_from_jax_config(j["cfg"].texture,
+                                  to_np(j["tex"].min_max), device)
     return dict(cfg=cfg, scene=scene, model=model, perceptual=perceptual,
+                tex=tex,
                 perc_params=perceptual_from_jax(to_np(j["perc_params"]),
                                                 device),
                 params=params_from_jax(to_np(j["params"]), device),
@@ -74,3 +100,53 @@ def eik_draws(n, key=KEY):
     u = np.array(jax.random.uniform(k1, (n,)))
     uv = np.array(jax.random.uniform(k2, (n, 2)))
     return torch.as_tensor(u), torch.as_tensor(uv)
+
+
+def _t(a):
+    return torch.as_tensor(np.array(a))
+
+
+def render_draws(k_render, n_tex_shape, n_uv_shape):
+    """The standard normals a render draws from ``k_render``
+    (pipeline.py:343-371 and :521-565): texture jitter, normal-tap jitter."""
+    k_jit, k_nrm = jax.random.split(k_render)
+    return (_t(jax.random.normal(k_jit, n_tex_shape)),
+            _t(jax.random.normal(k_nrm, n_uv_shape)))
+
+
+def compact_draw_shapes(cfg):
+    """Shapes of the compacted render's two draws for a JAX config."""
+    H, W = cfg.render.train_res
+    P = int(H * W * cfg.render.max_covered_frac)
+    n = -(-P // cfg.render.jitter_subsample)
+    return (n, 3), (n, 2)
+
+
+def init_draws(cfg, key=KEY):
+    """All draws of ``tick_init`` with ``PRNGKey(key)`` (losses.py:160)."""
+    k_render, _ = jax.random.split(jax.random.PRNGKey(key))
+    return {"eik": eik_draws(cfg.geometry.n_eikonal_samples, key),
+            "render": render_draws(k_render, *compact_draw_shapes(cfg))}
+
+
+def split_draws(cfg, key=KEY):
+    """All draws of ``tick_split`` with ``PRNGKey(key)``: per half the
+    render's normals, the eikonal sampler's uniforms and the crop corner
+    (losses.py:219, 348; perceptual.py:212-214)."""
+    H, W = cfg.render.train_res
+    crop = cfg.loss.perceptual_crop
+    out = {}
+    halves = jax.random.split(jax.random.PRNGKey(key))
+    for name, k in zip(("cloth", "body"), halves):
+        k_render, k_sample, k_crop = jax.random.split(k, 3)
+        k1, k2 = jax.random.split(k_sample)
+        n = cfg.geometry.n_eikonal_samples
+        kh, kw = jax.random.split(k_crop)
+        out[name] = {
+            "render": render_draws(k_render, *compact_draw_shapes(cfg)),
+            "eik": (_t(jax.random.uniform(k1, (n,))),
+                    _t(jax.random.uniform(k2, (n, 2)))),
+            "crop": (int(jax.random.randint(kh, (), 0, max(H - crop, 1))),
+                     int(jax.random.randint(kw, (), 0, max(W - crop, 1)))),
+        }
+    return out
