@@ -19,11 +19,17 @@ object per line:
                default hash-grid texture, split targets (JAX package:
                bench.py build("full"))
   kernels      each kernel against its plain version on the scene's own
-               inputs: first_k and the tile resolve (without and with a
-               depth-peel floor) exactly equal, the scatter within rel
-               1e-5 / abs 1e-6 and bitwise equal across two runs; time of
-               the kernel's wrapper, of the plain version and of a library
-               call computing the same function (CUDA events)
+               inputs: first_k exactly equal; the scatter within rel 1e-5 /
+               abs 1e-6 and bitwise equal across two runs; the tile resolve
+               (without and with a depth-peel floor; copied rows or rows by
+               face id; live ranges or all slots; every chunk and pixels-
+               per-thread variant) exactly equal to the plain FULL scan.
+               Time of the kernel's wrapper, of the plain version and of a
+               library call computing the same function (CUDA events); the
+               scatter's time split into key preparation + sort and the sum
+               kernels, beside the plain version's torch.sort and the
+               where + int64 sort it replaced; the binning with and without
+               the per-slot copy of the rows
   step         warm-up step, then INIT_STEPS timed init training steps
                (CUDA events) with every kernel launch count reset just
                before and read just after; losses finite, n_cross > 0,
@@ -42,6 +48,11 @@ object per line:
 Then the kernel table, the nvidia-smi line, and the result line
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
 non-zero and prints no result.
+
+    python3 chip_smoke.py --kernels-only
+
+stops after the kernels phase (a short check of a changed kernel): it
+prints the kernel table without launch counts and no result line.
 """
 
 from __future__ import annotations
@@ -214,6 +225,21 @@ def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time of ``fn``'s launches alone: captured once into a CUDA
+    graph and replayed, so no host time between its launches counts (a
+    wrapper that takes the host longer to call than the card to run reads
+    the host's time under ``cuda_ms``)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, reps=reps)
+
+
 def bound_ms(n_bytes: float, n_ops: float = 0.0):
     t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
     t_ops = n_ops / H100_F32_OPS_PER_S * 1e3
@@ -322,7 +348,8 @@ def phase_kernels(sc: dict) -> list:
     # and the sorted image scatter, at their main-path shapes. Rows that
     # carry a zero cotangent on the step (empty pixel slots, dead faces)
     # are zero here too.
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    dev = meshes.verts_posed.device
+    gen = torch.Generator(device=dev).manual_seed(0)
     V = meshes.verts_posed.shape[0]
     # the finest hash level's rows of the covered pixels' texture points
     # (here the template-space centroid of each pixel's face)
@@ -347,11 +374,21 @@ def phase_kernels(sc: dict) -> list:
     sc_times = []
     for what, idx, live, C, rows_out, srt in sc_calls:
         N = idx.numel()
-        vals = torch.randn((N, C), generator=gen, device="cuda") * live[:, None]
+        vals = torch.randn((N, C), generator=gen, device=dev) * live[:, None]
+        calls0 = scatter.coo_scatter_add.calls
+        launches0 = scatter.coo_scatter_add.launches
         got = scatter.coo_scatter_add(idx, vals, rows_out, sorted_idx=srt)
+        per_call = scatter.coo_scatter_add.launches - launches0
+        check(scatter.coo_scatter_add.calls - calls0 == 1
+              and per_call == scatter._launches(N) == (2 if N > scatter.TILE
+                                                       else 1),
+              f"scatter {what}: {per_call} launches counted for one call")
         again = scatter.coo_scatter_add(idx, vals, rows_out, sorted_idx=srt)
         want = scatter.coo_scatter_add_plain(idx, vals, rows_out, srt)
         check(torch.equal(got, again), f"scatter {what}: not deterministic")
+        # the plain version repeats the kernels' order of additions, so the
+        # two should agree bit for bit (reported); what is required is the
+        # tolerance of float32 sums taken in another order
         err = (got - want).abs()
         check(bool((err <= 1e-6 + 1e-5 * want.abs()).all()),
               f"scatter {what}: max err {float(err.max())}")
@@ -359,21 +396,64 @@ def phase_kernels(sc: dict) -> list:
         didx = torch.where(keep, idx, rows_out).long()
 
         def library(vals=vals, didx=didx, C=C, rows_out=rows_out):
-            return torch.zeros((rows_out + 1, C), device="cuda").index_add_(
+            return torch.zeros((rows_out + 1, C), device=dev).index_add_(
                 0, didx, vals)[:rows_out]
+
+        ref = library()
+        err_lib = (got - ref).abs()
+        check(bool((err_lib <= 1e-4 + 1e-4 * ref.abs()).all()),
+              f"scatter {what}: against index_add_ {float(err_lib.max())}")
+        # the parts; the narrow radix sort gives torch.sort's stable order
+        keys, perm = scatter.sort_rows(idx, rows_out, srt)
+        k2, p2 = scatter.sort_rows_plain(idx, rows_out, srt)
+        check(torch.equal(keys, k2) and (srt or torch.equal(perm, p2)),
+              f"scatter {what}: sort_rows != its plain version")
+        check(torch.equal(got, scatter.segmented_sum(keys, perm, vals,
+                                                     rows_out)),
+              f"scatter {what}: parts != wrapper")
+        # tiles of 2,048 rows add in another order: held to the plain
+        # version at that tile size
+        check(torch.equal(
+            scatter.segmented_sum(keys, perm, vals, rows_out, tile=2048),
+            scatter.segmented_sum_plain(keys, perm, vals, rows_out,
+                                        tile=2048)),
+              f"scatter {what}: tile 2048, kernel != plain")
+
+        def where_sort64(idx=idx, rows_out=rows_out, srt=srt):
+            k = torch.where((idx >= 0) & (idx < rows_out), idx,
+                            rows_out).to(torch.int32)
+            return k if srt else torch.sort(k, stable=True)
 
         b, by = bound_ms(N * 4 * (1 + C) + rows_out * 4 * C)
         sc_times.append(dict(
             call=what, N=N, C=C, out_rows=rows_out, sorted=srt,
-            bound_ms=b, bound_by=by,
+            bound_ms=b, bound_by=by, launches_per_call=per_call,
             max_abs_err=float(err.max()), bitwise=torch.equal(got, want),
             ms=cuda_ms(lambda: scatter.coo_scatter_add(idx, vals, rows_out,
                                                        sorted_idx=srt)),
+            # the rest: device time alone (CUDA graph replays)
+            device_ms=graph_ms(lambda: scatter.coo_scatter_add(
+                idx, vals, rows_out, sorted_idx=srt)),
+            prep_sort_ms=graph_ms(lambda: scatter.sort_rows(idx, rows_out,
+                                                            srt)),
+            # yardsticks for the sort part: the plain version (where, int32
+            # keys, torch.sort, int64 permutation cast to int32) and what
+            # the wrapper did before the narrow sort (the same, uncast)
+            prep_sort_plain_ms=graph_ms(lambda: scatter.sort_rows_plain(
+                idx, rows_out, srt)),
+            prep_where_sort64_ms=graph_ms(where_sort64),
+            sum_ms=graph_ms(lambda: scatter.segmented_sum(keys, perm, vals,
+                                                          rows_out)),
+            sum_tile2048_ms=graph_ms(lambda: scatter.segmented_sum(
+                keys, perm, vals, rows_out, tile=2048)),
+            library_device_ms=graph_ms(library),
             plain_ms=cuda_ms(lambda: scatter.coo_scatter_add_plain(
-                idx, vals, rows_out, srt)),
+                idx, vals, rows_out, srt), reps=2, warm=1),
             library_ms=cuda_ms(library)))
+        check(sc_times[-1]["ms"] < sc_times[-1]["library_ms"],
+              f"scatter {what}: slower than index_add_")
     emit("kernel_scatter", deterministic=True, tolerance="rel 1e-5 abs 1e-6",
-         calls=sc_times)
+         tile=scatter.TILE, calls=sc_times)
     big = sc_times[0]
     rows.append(dict(name="coo_scatter_add", route="cuda",
                      source="d3human_tpu_torch/csrc/scatter.cu",
@@ -382,44 +462,106 @@ def phase_kernels(sc: dict) -> list:
                      max_abs_err=max(c["max_abs_err"] for c in sc_times),
                      ms=big["ms"], plain_ms=big["plain_ms"],
                      bound_ms=big["bound_ms"], bound_by=big["bound_by"],
-                     library_ms=big["library_ms"]))
+                     library_ms=big["library_ms"],
+                     device_ms=big["device_ms"],
+                     prep_sort_ms=big["prep_sort_ms"], sum_ms=big["sum_ms"]))
 
-    # ---- tile resolve on the scene's own binned rows: exact keys
+    # ---- tile resolve on the scene's own binning: exact keys. Every form
+    # is held to the plain FULL scan of the copied rows, so a wrong live
+    # count cannot hide.
     tile = (8, 128)
-    ntx = binned.grid[1]
-    got = rr.resolve_tiles(binned.tile_rows, tile, ntx)
-    want = rr.resolve_tiles_plain(binned.tile_rows, tile, ntx)
-    check(torch.equal(got, want), "resolve: kernel != plain "
-          f"({int((got != want).sum())} keys differ)")
-    check(bool((got != rr.MISS_KEY).any()), "resolve: no pixel covered")
-    NT, M, _ = binned.tile_rows.shape
+    nty, ntx, NT = binned.grid
+    tile_rows = binned.tile_rows                    # [NT, M, 16] copied rows
+    M = tile_rows.shape[1]
     Ppix = tile[0] * tile[1]
+    ranges = dict(counts=binned.counts, global_range=binned.global_range)
     live_slots = int((binned.all_faces < faces.shape[0]).sum())
+    bin_ms = dict(
+        bin_faces_ms=cuda_ms(lambda: bin_faces(v_clip, faces, fvalid, res)),
+        copy_rows_per_slot_ms=graph_ms(lambda: binned.tile_rows),
+        copied_bytes=tile_rows.numel() * 4,
+        longest_list=int((binned.starts[1:] - binned.starts[:-1]).max()),
+        n_global=int(binned.global_range[1]),
+        tiles_with_faces=int((binned.counts > 0).sum()),
+        tiles_over_128_slots=int((binned.counts > 128).sum()),
+        tiles_at_the_cap=int((binned.counts == binned.global_range[0]).sum()),
+        cta_with_work=int((-(-binned.counts // rr.CHUNK)).sum()))
+    emit("bin_faces", **bin_ms)
+
+    def resolve_forms(floor):
+        """Every form of the launch -> (keys of the main path's form, the
+        plain version's time, the main form's wrapper time, device times by
+        form from CUDA graph replays); each checked against the plain full
+        scan."""
+        want = rr.resolve_tiles_plain(tile_rows, tile, ntx, floor=floor)
+        plain_ms = cuda_ms(lambda: rr.resolve_tiles_plain(
+            tile_rows, tile, ntx, floor=floor), reps=2, warm=1)
+        plain_ranges = rr.resolve_tiles_plain(tile_rows, tile, ntx,
+                                              floor=floor, **ranges)
+        check(torch.equal(plain_ranges, want),
+              "resolve: the plain version with ranges != its full scan")
+        ix = (binned.rows, binned.all_faces)
+        forms = {
+            "copied rows, all slots": lambda **kw: rr.resolve_tiles(
+                tile_rows, tile, ntx, floor=floor, **kw),
+            "copied rows, live ranges": lambda **kw: rr.resolve_tiles(
+                tile_rows, tile, ntx, floor=floor, **ranges, **kw),
+            "rows by face id, all slots": lambda **kw:
+                rr.resolve_tiles_indexed(*ix, tile, ntx, floor=floor, **kw),
+            "rows by face id, live ranges": lambda **kw:
+                rr.resolve_tiles_indexed(*ix, tile, ntx, floor=floor,
+                                         **ranges, **kw),
+        }
+        main = forms["rows by face id, live ranges"]
+        times = {}
+        for name, fn in forms.items():
+            got = fn()
+            check(torch.equal(got, want), f"resolve ({name}): kernel != "
+                  f"plain full scan ({int((got != want).sum())} keys differ)")
+            times[name] = graph_ms(fn)
+        for chunk in (1024, 512, 256, 128):
+            for pix in (1, 2, 4, 8):
+                got = main(chunk=chunk, pix=pix)
+                check(torch.equal(got, want), f"resolve chunk={chunk} "
+                      f"pix={pix}: {int((got != want).sum())} keys differ")
+                times[f"chunk={chunk} pix={pix}"] = graph_ms(
+                    lambda: main(chunk=chunk, pix=pix))
+        # the tail: one CTA per tile, with every list cut to 256 slots
+        capped = dict(ranges, counts=binned.counts.clamp(max=256))
+        times["chunk=1024, lists cut to 256 (no tail)"] = graph_ms(
+            lambda: rr.resolve_tiles_indexed(*ix, tile, ntx, floor=floor,
+                                             chunk=1024, **capped))
+        # the fixed part: the fill and a grid of CTAs that all leave at once
+        idle = dict(ranges, counts=torch.zeros_like(binned.counts))
+        times["no live slot (fill + empty CTAs)"] = graph_ms(
+            lambda: rr.resolve_tiles_indexed(*ix, tile, ntx, floor=floor,
+                                             **idle))
+        return main(), plain_ms, cuda_ms(main), times
+
+    got, plain_ms, ms, times = resolve_forms(None)
+    check(bool((got != rr.MISS_KEY).any()), "resolve: no pixel covered")
     # a live slot's 16-float row is read; a dead one needs only its flag
     b, by = bound_ms(live_slots * 64 + (NT * M - live_slots) * 4
                      + NT * Ppix * 4, 18.0 * live_slots * Ppix)
     rs = dict(NT=NT, M=M, live_slots=live_slots,
               hit_pixels=int((got != rr.MISS_KEY).sum()),
-              ms=cuda_ms(lambda: rr.resolve_tiles(binned.tile_rows, tile,
-                                                  ntx)),
-              plain_ms=cuda_ms(lambda: rr.resolve_tiles_plain(
-                  binned.tile_rows, tile, ntx), reps=2, warm=1))
+              chunk=rr.CHUNK, pix=rr.PIX, ms=ms,
+              device_ms=times["rows by face id, live ranges"],
+              plain_ms=plain_ms, forms_device_ms=times)
     emit("kernel_resolve", exact=True, **rs)
     rows.append(dict(name="resolve_tiles", route="cuda",
                      source="d3human_tpu_torch/csrc/raster_resolve.cu",
                      replaces="d3human_tpu/ops/pallas_raster.py:52",
                      shape=f"NT={NT} M={M} P={Ppix}", max_abs_err=0.0,
                      ms=rs["ms"], plain_ms=rs["plain_ms"], bound_ms=b,
-                     bound_by=by, library_ms=None))
+                     bound_by=by, library_ms=None,
+                     device_ms=rs["device_ms"]))
 
     # ---- the depth-peel step on the same rows: layer 0's keys as the
     # floor; exact keys, every hit strictly behind its floor, and a pixel
     # that missed in layer 0 misses again
     floor = got
-    got_p = rr.resolve_tiles(binned.tile_rows, tile, ntx, floor=floor)
-    want_p = rr.resolve_tiles_plain(binned.tile_rows, tile, ntx, floor=floor)
-    check(torch.equal(got_p, want_p), "resolve with floor: kernel != plain "
-          f"({int((got_p != want_p).sum())} keys differ)")
+    got_p, plain_ms, ms, times = resolve_forms(floor)
     hit_p = got_p != rr.MISS_KEY
     check(bool(hit_p.any()), "resolve with floor: no second layer")
     check(bool((got_p[hit_p] > floor[hit_p]).all()),
@@ -431,17 +573,16 @@ def phase_kernels(sc: dict) -> list:
     b, by = bound_ms(live_slots * 64 + (NT * M - live_slots) * 4
                      + 2 * NT * Ppix * 4, 19.0 * live_slots * Ppix)
     ps = dict(NT=NT, M=M, live_slots=live_slots, hit_pixels=int(hit_p.sum()),
-              ms=cuda_ms(lambda: rr.resolve_tiles(binned.tile_rows, tile,
-                                                  ntx, floor=floor)),
-              plain_ms=cuda_ms(lambda: rr.resolve_tiles_plain(
-                  binned.tile_rows, tile, ntx, floor=floor), reps=2, warm=1))
+              ms=ms, device_ms=times["rows by face id, live ranges"],
+              plain_ms=plain_ms, forms_device_ms=times)
     emit("kernel_resolve_peel", exact=True, **ps)
     rows.append(dict(name="resolve_tiles_peel", route="cuda",
                      source="d3human_tpu_torch/csrc/raster_resolve.cu",
                      replaces="d3human_tpu/ops/pallas_raster.py:58",
                      shape=f"NT={NT} M={M} P={Ppix} + floor",
                      max_abs_err=0.0, ms=ps["ms"], plain_ms=ps["plain_ms"],
-                     bound_ms=b, bound_by=by, library_ms=None))
+                     bound_ms=b, bound_by=by, library_ms=None,
+                     device_ms=ps["device_ms"]))
     return rows
 
 
@@ -450,20 +591,25 @@ def reset_counts() -> None:
 
     compaction.first_k_indices.launches = 0
     scatter.coo_scatter_add.launches = 0
+    scatter.coo_scatter_add.calls = 0
     raster_resolve.resolve_tiles.launches = 0
     raster_resolve.resolve_tiles.floor_launches = 0
 
 
 def read_counts() -> dict:
     """Kernel launches since ``reset_counts``, by the kernel table's names:
-    the resolve's launches with a floor count as ``resolve_tiles_peel``."""
+    the resolve's launches with a floor count as ``resolve_tiles_peel``.
+    ``calls`` are calls of the wrappers; they differ from the launches for
+    the scatter only (two sum kernels per call, one for a single tile)."""
     from d3human_tpu_torch.ops import compaction, raster_resolve, scatter
 
     rt = raster_resolve.resolve_tiles
-    return {"first_k_indices": compaction.first_k_indices.launches,
-            "coo_scatter_add": scatter.coo_scatter_add.launches,
-            "resolve_tiles": rt.launches - rt.floor_launches,
-            "resolve_tiles_peel": rt.floor_launches}
+    n = {"first_k_indices": compaction.first_k_indices.launches,
+         "coo_scatter_add": scatter.coo_scatter_add.launches,
+         "resolve_tiles": rt.launches - rt.floor_launches,
+         "resolve_tiles_peel": rt.floor_launches}
+    n["calls"] = dict(n, coo_scatter_add=scatter.coo_scatter_add.calls)
+    return n
 
 
 # launches per step the stage's code path must make (first_k: crossing
@@ -516,7 +662,8 @@ def phase_step(sc: dict, stage: str, steps: int) -> dict:
     for i, mm in enumerate(metrics):
         check_step_metrics(stage, scalars(mm), f"{phase} {i}")
     last = scalars(metrics[-1])
-    check(launches["coo_scatter_add"] > 0,
+    calls = launches.pop("calls")
+    check(launches["coo_scatter_add"] > 0 and calls["coo_scatter_add"] > 0,
           f"{phase}: the scatter kernel never launched")
     check(launches["resolve_tiles_peel"] == 0,
           f"{phase}: a training step launched the resolve with a floor")
@@ -527,11 +674,11 @@ def phase_step(sc: dict, stage: str, steps: int) -> dict:
     out = dict(steps=steps, step_ms=step_ms,
                mean_ms=sum(step_ms) / steps, warmup_s=warm_s,
                launches_per_step={k: n / steps for k, n in launches.items()},
+               calls_per_step={k: n / steps for k, n in calls.items()},
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                losses=last)
     emit(phase, **out)
-    out["launches"] = launches
-    return out
+    return dict(launches=launches, calls=calls)
 
 
 def validation_render(sc: dict, sign: float, generator=None):
@@ -599,7 +746,7 @@ def phase_validate(sc: dict) -> dict:
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    halves, total = {}, {}
+    halves, total, total_calls = {}, {}, {}
     for name, sign in (("cloth", 1.0), ("body", -1.0)):
         info = check_validation(sc, f"validate {name}",
                                 *validation_render(sc, sign, gen))
@@ -613,17 +760,21 @@ def phase_validate(sc: dict) -> dict:
         end.record()
         end.synchronize()
         n = read_counts()
+        calls = n.pop("calls")
         check(n["resolve_tiles"] == 1
               and n["resolve_tiles_peel"] == VAL_LAYERS - 1,
               f"validate {name}: resolve launches {n}")
-        check(n["first_k_indices"] > 0 and n["coo_scatter_add"] > 0,
+        check(n["first_k_indices"] > 0 and n["coo_scatter_add"] > 0
+              and calls["coo_scatter_add"] > 0,
               f"validate {name}: launches {n}")
-        halves[name] = dict(info, ms=start.elapsed_time(end), launches=n)
+        halves[name] = dict(info, ms=start.elapsed_time(end), launches=n,
+                            calls=calls)
         for k, v in n.items():
             total[k] = total.get(k, 0) + v
+            total_calls[k] = total_calls.get(k, 0) + calls[k]
     emit("validate", layers=VAL_LAYERS, halves=halves,
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-    return dict(launches=total)
+    return dict(launches=total, calls=total_calls)
 
 
 def phase_profile(what: str, run) -> None:
@@ -661,8 +812,10 @@ def phase_profile(what: str, run) -> None:
                          device_ms=e.device_time_total / 1e3)
                     for e in sorted(by_shape, key=lambda e:
                                     -e.device_time_total)[:12]],
-         port_kernels=[row(e) for e in avg if e.key.startswith(
-             ("first_k_kernel", "segsum_level", "resolve_tiles_kernel"))])
+         port_kernels=[row(e) for e in avg if any(k in e.key for k in (
+             "first_k_kernel", "scatter_keys_kernel", "DeviceRadixSort",
+             "segsum_tile_kernel", "segsum_carry_kernel",
+             "resolve_tiles_kernel", "fill_keys_kernel"))])
 
 
 def one_more_step(sc: dict, stage: str) -> None:
@@ -707,23 +860,32 @@ def main() -> int:
          pretrain_loss=sc["pretrain_loss"])
 
     rows = phase_kernels(sc)
-    paths = {"init_step": phase_step(sc, "init", INIT_STEPS)["launches"]}
+    if "--kernels-only" in sys.argv[1:]:
+        print(json.dumps({"kernels": rows}), flush=True)
+        print(smi, flush=True)
+        return 0
+    paths = {"init_step": phase_step(sc, "init", INIT_STEPS)}
     phase_profile("init step", lambda: one_more_step(sc, "init"))
-    paths["split_step"] = phase_step(sc, "split", SPLIT_STEPS)["launches"]
-    paths["validate"] = phase_validate(sc)["launches"]
+    paths["split_step"] = phase_step(sc, "split", SPLIT_STEPS)
+    paths["validate"] = phase_validate(sc)
     phase_profile("split step", lambda: one_more_step(sc, "split"))
     phase_profile("validation render, cloth half",
                   lambda: validation_render(sc, 1.0))
     for r in rows:
         # launches: the kernel's launches on the driven paths (INIT_STEPS
         # init steps, SPLIT_STEPS split steps, one validation render of
-        # each half); the scatter counts each launch of its level kernel
-        r["launches_by_path"] = {k: v[r["name"]] for k, v in paths.items()}
-        r["launches"] = sum(r["launches_by_path"].values())
-        check(r["launches"] > 0, f"{r['name']} launched on no driven path")
+        # each half); the scatter counts each launch of its two sum
+        # kernels, and its calls are the calls of the wrapper
+        for what in ("launches", "calls"):
+            r[what + "_by_path"] = {k: v[what][r["name"]]
+                                    for k, v in paths.items()}
+            r[what] = sum(r[what + "_by_path"].values())
+            check(r[what] > 0, f"{r['name']}: no {what} on the driven paths")
     emit("paths", init_step={"steps": INIT_STEPS},
          split_step={"steps": SPLIT_STEPS},
-         validate={"renders": 2, "layers": VAL_LAYERS}, launches=paths)
+         validate={"renders": 2, "layers": VAL_LAYERS},
+         launches={k: v["launches"] for k, v in paths.items()},
+         calls={k: v["calls"] for k, v in paths.items()})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

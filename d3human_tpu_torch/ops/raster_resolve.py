@@ -7,10 +7,19 @@ the minimum of ``key = (zq << 10) | slot`` (zq the 21-bit quantized depth);
 ``MISS_KEY`` marks background. With ``floor`` (a previous call's keys) only
 keys strictly above it compete — one depth-peel step.
 
-On a CUDA tensor ``resolve_tiles`` launches the hand-written kernel
+``counts`` [NT] and ``global_range = (g0, n_global)`` name a tile's live
+slots as the binning lays them out: ``[0, counts[t])`` its own near-to-far
+list, ``[g0, g0 + n_global)`` the shared list of oversize faces (``n_global``
+a tensor on the rows' device: nothing is read back). Only those slots are
+walked; without ``counts`` all M are. A row's ``live`` flag is tested either
+way. ``resolve_tiles_indexed`` takes the face table ``[F+1, 16]`` and the
+slots' face ids ``[NT, M]`` int32 instead of one copied row per slot.
+
+On a CUDA tensor both launch the hand-written kernel
 ``csrc/raster_resolve.cu`` (which replaces the Pallas kernel
 ``d3human_tpu/ops/pallas_raster.py:64 _resolve_body``; the source note there
-says what bounds it). On a CPU tensor it runs ``resolve_tiles_plain``.
+says what bounds it and what ``chunk`` and ``pix`` do). On a CPU tensor they
+run ``resolve_tiles_plain``.
 
 Both evaluate the edge and depth functions with the rounding of the JAX
 kernel's dots as XLA evaluates them (``acc = px*a; acc = fma(py, b, acc);
@@ -35,10 +44,13 @@ MISS_KEY = (1 << 31) - 1
 ROW_W = 16
 BLOCK = 128
 
+CHUNK = 128     # slots per CTA: a tile's slots are cut over M / CHUNK CTAs
+PIX = 4         # pixels of one column per thread, where it divides th
+
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _SIG = {"d3h_resolve_tiles": (
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ctypes.c_void_p)}
+    _PTR, _PTR, _PTR, _PTR, _INT, _PTR, _INT, _INT, _INT, _INT, _INT, _INT,
+    _INT, _PTR, _PTR)}
 
 
 def pack_face_rows(A: torch.Tensor, C: torch.Tensor, az, bz, cz,
@@ -68,13 +80,29 @@ def _pixel_centres(nt0: int, nt1: int, th: int, tw: int, ntx: int, device):
     return px, py
 
 
+def _slot_in_range(NT: int, M: int, counts, global_range, device):
+    """[NT, M] bool: the slots the kernel walks."""
+    if counts is None:
+        return torch.ones((NT, M), dtype=torch.bool, device=device)
+    slot = torch.arange(M, device=device)[None, :]
+    walk = slot < counts[:, None]
+    if global_range is not None:
+        g0, n_global = global_range
+        walk = walk | ((slot >= g0) & (slot < g0 + n_global.reshape(())))
+    return walk
+
+
 def resolve_tiles_plain(tile_rows: torch.Tensor, tile: Tuple[int, int],
                         ntx: int, floor: Optional[torch.Tensor] = None,
+                        counts: Optional[torch.Tensor] = None,
+                        global_range=None,
                         tiles_per_chunk: int = 32) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: [NT, M, 16] -> keys [NT, P]."""
+    """Plain PyTorch version of the kernel: [NT, M, 16] -> keys [NT, P].
+    With ``counts`` it skips the slots the kernel skips."""
     NT, M, _ = tile_rows.shape
     th, tw = tile
     dev = tile_rows.device
+    walk = _slot_in_range(NT, M, counts, global_range, dev)
     out = []
     for t0 in range(0, NT, tiles_per_chunk):
         t1 = min(NT, t0 + tiles_per_chunk)
@@ -83,6 +111,9 @@ def resolve_tiles_plain(tile_rows: torch.Tensor, tile: Tuple[int, int],
         best = torch.full(px.shape[:2], MISS_KEY, dtype=torch.int32,
                           device=dev)
         for b in range(0, M, BLOCK):
+            w = walk[t0:t1, None, b:b + BLOCK]                  # [nt,1,B]
+            if counts is not None and not bool(w.any()):
+                continue
             r = tile_rows[t0:t1, None, b:b + BLOCK]             # [nt,1,B,16]
 
             def lin(k0, k1, k2):
@@ -92,7 +123,7 @@ def resolve_tiles_plain(tile_rows: torch.Tensor, tile: Tuple[int, int],
             inside = (((e0 >= 0) & (e1 >= 0) & (e2 >= 0))
                       | ((e0 <= 0) & (e1 <= 0) & (e2 <= 0)))
             z = lin(9, 10, 11)
-            hit = inside & (r[..., 12] > 0.5)
+            hit = inside & (r[..., 12] > 0.5) & w
             zq = torch.clamp((z + 1.0) * (0.5 * Z_SCALE), 0.0, Z_SCALE)
             slot = torch.arange(b, b + r.shape[2], dtype=torch.int32,
                                 device=dev)
@@ -106,42 +137,96 @@ def resolve_tiles_plain(tile_rows: torch.Tensor, tile: Tuple[int, int],
     return torch.cat(out, dim=0)
 
 
-def resolve_tiles(tile_rows: torch.Tensor, tile: Tuple[int, int], ntx: int,
-                  floor: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Packed keys [NT, th*tw] int32 (MISS_KEY = background)."""
-    NT, M, W = tile_rows.shape
+def _resolve(rows: torch.Tensor, faces: Optional[torch.Tensor], NT: int,
+             M: int, tile, ntx: int, floor, counts, global_range,
+             chunk: Optional[int], pix: Optional[int]) -> torch.Tensor:
+    """Check, launch and count: ``rows`` [NT, M, 16], or the face table
+    read through ``faces`` [NT, M]."""
     th, tw = tile
-    if W != ROW_W or M % BLOCK or M > (1 << SLOT_BITS):
-        raise ValueError(f"resolve_tiles: rows must be [NT, M, 16] with M a "
-                         f"multiple of {BLOCK} and <= 1024, got "
-                         f"{tuple(tile_rows.shape)}")
-    if tile_rows.device.type == "cpu":
-        return resolve_tiles_plain(tile_rows, tile, ntx, floor)
-    if tile_rows.device.type != "cuda":
-        raise ValueError(f"resolve_tiles: unsupported device "
-                         f"{tile_rows.device}")
-    if tile_rows.dtype != torch.float32 or th * tw > 1024:
+    dev = rows.device
+    if dev.type != "cuda":
+        raise ValueError(f"resolve_tiles: unsupported device {dev}")
+    if rows.dtype != torch.float32 or th * tw > 1024:
         raise ValueError("resolve_tiles: float32 rows and th*tw <= 1024 "
                          "pixels per tile")
-    tile_rows = tile_rows.contiguous()
-    if floor is not None:
-        floor = floor.to(torch.int32).contiguous()
-    out = torch.empty((NT, th * tw), dtype=torch.int32,
-                      device=tile_rows.device)
+    if pix is None:
+        pix = next(p for p in (PIX, 2, 1) if th % p == 0)
+    chunk = CHUNK if chunk is None else chunk
+    rows = rows.contiguous()
+
+    def i32(x, shape, what):
+        x = x.to(device=dev, dtype=torch.int32).contiguous()
+        if tuple(x.shape) != shape:
+            raise ValueError(f"resolve_tiles: {what} must have shape "
+                             f"{shape}, got {tuple(x.shape)}")
+        return x
+
+    faces = None if faces is None else i32(faces, (NT, M), "faces")
+    floor = None if floor is None else i32(floor, (NT, th * tw), "floor")
+    counts = None if counts is None else i32(counts, (NT,), "counts")
+    g0, n_global = 0, None
+    if counts is not None and global_range is not None:
+        g0 = int(global_range[0])
+        n_global = i32(global_range[1].reshape(-1), (1,), "n_global")
+    out = torch.empty((NT, th * tw), dtype=torch.int32, device=dev)
     if NT == 0:
         return out
+
+    def ptr(x):
+        return 0 if x is None else x.data_ptr()
+
     lib = cuda_lib.load("raster_resolve", _SIG)
     cuda_lib.check(lib.d3h_resolve_tiles(
-        tile_rows.data_ptr(), 0 if floor is None else floor.data_ptr(),
-        NT, M, th, tw, ntx, out.data_ptr(),
-        cuda_lib.stream_ptr(tile_rows.device)), "resolve_tiles")
+        rows.data_ptr(), ptr(faces), ptr(floor), ptr(counts), g0,
+        ptr(n_global), NT, M, th, tw, ntx, chunk, pix, out.data_ptr(),
+        cuda_lib.stream_ptr(dev)), "resolve_tiles")
     resolve_tiles.launches += 1
     if floor is not None:
         resolve_tiles.floor_launches += 1
     return out
 
 
-resolve_tiles.launches = 0          # every launch of the kernel
+def _check_slots(M: int, W: int, shape) -> None:
+    if W != ROW_W or M % BLOCK or M > (1 << SLOT_BITS):
+        raise ValueError(f"resolve_tiles: rows must be [.., 16] with M a "
+                         f"multiple of {BLOCK} and <= 1024 slots per tile, "
+                         f"got {tuple(shape)}")
+
+
+def resolve_tiles(tile_rows: torch.Tensor, tile: Tuple[int, int], ntx: int,
+                  floor: Optional[torch.Tensor] = None,
+                  counts: Optional[torch.Tensor] = None, global_range=None,
+                  chunk: Optional[int] = None,
+                  pix: Optional[int] = None) -> torch.Tensor:
+    """Packed keys [NT, th*tw] int32 (MISS_KEY = background) from one copied
+    row per slot, ``tile_rows`` [NT, M, 16]."""
+    NT, M, W = tile_rows.shape
+    _check_slots(M, W, tile_rows.shape)
+    if tile_rows.device.type == "cpu":
+        return resolve_tiles_plain(tile_rows, tile, ntx, floor, counts,
+                                   global_range)
+    return _resolve(tile_rows, None, NT, M, tile, ntx, floor, counts,
+                    global_range, chunk, pix)
+
+
+def resolve_tiles_indexed(rows: torch.Tensor, all_faces: torch.Tensor,
+                          tile: Tuple[int, int], ntx: int,
+                          floor: Optional[torch.Tensor] = None,
+                          counts: Optional[torch.Tensor] = None,
+                          global_range=None, chunk: Optional[int] = None,
+                          pix: Optional[int] = None) -> torch.Tensor:
+    """The same keys from the face table ``rows`` [F+1, 16] and the slots'
+    face ids ``all_faces`` [NT, M] (F = the zero row): no row is copied."""
+    NT, M = all_faces.shape
+    _check_slots(M, rows.shape[1], all_faces.shape)
+    if rows.device.type == "cpu":
+        return resolve_tiles_plain(rows[all_faces.long()], tile, ntx, floor,
+                                   counts, global_range)
+    return _resolve(rows, all_faces, NT, M, tile, ntx, floor, counts,
+                    global_range, chunk, pix)
+
+
+resolve_tiles.launches = 0          # every launch of the kernel, either form
 resolve_tiles.floor_launches = 0    # those with a floor (depth-peel steps)
 
 

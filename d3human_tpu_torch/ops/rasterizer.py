@@ -6,8 +6,10 @@ the dense image for validation (counterpart of
 tile binning by one stable sort of the int32 key ``(tile << 20) | zq`` that
 carries the face ids, a global list for oversize faces, and the per-tile
 resolve of ``ops/raster_resolve.py`` with the Pallas kernel's semantics
-(quantized-z then slot order). ``layers > 1`` depth-peels: the binning runs
-once and the resolve repeats with the previous layer's keys as the floor.
+(quantized-z then slot order), which reads the face rows through the slots'
+face ids and walks each tile's live slots only. ``layers > 1`` depth-peels:
+the binning runs once and the resolve repeats with the previous layer's keys
+as the floor.
 The XLA ``_resolve_tile`` path of the JAX package, which orders by float
 (z, id), is not ported.
 
@@ -26,7 +28,7 @@ import torch
 
 from d3human_tpu_torch.ops.compaction import first_k_indices
 from d3human_tpu_torch.ops.raster_resolve import (
-    pack_face_rows, resolve_tiles, unpack_keys,
+    pack_face_rows, resolve_tiles_indexed, unpack_keys,
 )
 from d3human_tpu_torch.ops.scatter import (
     coo_scatter_add, gather_rows, scatter_rows_sorted,
@@ -41,13 +43,25 @@ class Rast(NamedTuple):
 
 
 class Binned(NamedTuple):
-    """Rasterizer setup: what the tile resolve consumes."""
+    """Rasterizer setup: what the tile resolve consumes. A tile's live
+    slots are ``[0, counts[t])`` (its own list, near to far) and
+    ``[g0, g0 + n_global)`` with ``(g0, n_global) = global_range`` (the
+    shared list of oversize faces, live ones first); every other slot holds
+    face id F, the zero row."""
 
-    tile_rows: torch.Tensor   # [NT, M, 16] fused face rows per tile slot
-    all_faces: torch.Tensor   # [NT, M] face id per slot (F = dead slot)
+    rows: torch.Tensor        # [F+1, 16] fused face rows; row F is zero
+    all_faces: torch.Tensor   # [NT, M] int32 face id per slot (F = dead)
+    counts: torch.Tensor      # [NT] int32 slots of each tile's own list
+    global_range: Tuple[int, torch.Tensor]  # (g0, n_global int32 tensor)
     starts: torch.Tensor      # [NT+1] per-tile ranges in the sorted pairs
     n_big: torch.Tensor       # oversize face count
     grid: Tuple[int, int, int]   # (nty, ntx, NT)
+
+    @property
+    def tile_rows(self) -> torch.Tensor:
+        """[NT, M, 16]: one copied row per slot, for ``resolve_tiles``;
+        ``rasterize`` reads the rows through ``all_faces`` instead."""
+        return self.rows[self.all_faces.long()]
 
 
 def xfm_points(points: torch.Tensor, mtx: torch.Tensor) -> torch.Tensor:
@@ -159,6 +173,7 @@ def bin_faces(verts_clip: torch.Tensor, faces: torch.Tensor,
     in_list = gpos < starts[1:, None]
     gpos = gpos.clamp(0, F * K - 1)
     tile_faces = torch.where(in_list, s_face[gpos], F)           # [NT, MFPT]
+    counts = (starts[1:] - starts[:-1]).clamp(max=MFPT).to(torch.int32)
 
     # global (oversize) list, nearest first
     big_key = torch.where(big, zq, 1 << 30)
@@ -172,8 +187,9 @@ def bin_faces(verts_clip: torch.Tensor, faces: torch.Tensor,
             (pad,), dtype=torch.bool, device=dev)])
     big_faces = torch.where(big_ok, big_idx.clamp(0, F - 1), F)
 
-    all_faces = torch.cat([tile_faces.long(),
-                           big_faces.long()[None].expand(NT, -1)], dim=1)
+    all_faces = torch.cat([tile_faces,
+                           big_faces.to(torch.int32)[None].expand(NT, -1)],
+                          dim=1)
     pad = (-all_faces.shape[1]) % 128
     if pad:
         all_faces = torch.cat([all_faces, torch.full(
@@ -181,7 +197,8 @@ def bin_faces(verts_clip: torch.Tensor, faces: torch.Tensor,
     rows = pack_face_rows(A, C, az, bz, cz, live)
     rows = torch.cat([rows, torch.zeros((1, rows.shape[1]),
                                         dtype=rows.dtype, device=dev)])
-    return Binned(tile_rows=rows[all_faces], all_faces=all_faces,
+    return Binned(rows=rows, all_faces=all_faces, counts=counts,
+                  global_range=(MFPT, big_ok.sum().to(torch.int32)),
                   starts=starts, n_big=big.sum(), grid=(nty, ntx, NT))
 
 
@@ -209,7 +226,9 @@ def rasterize(verts_clip: torch.Tensor, faces: torch.Tensor,
 
     rasts, keys = [], None
     for _ in range(layers):
-        keys = resolve_tiles(b.tile_rows, tile, ntx, floor=keys)
+        keys = resolve_tiles_indexed(b.rows, b.all_faces, tile, ntx,
+                                     floor=keys, counts=b.counts,
+                                     global_range=b.global_range)
         ids, zs = unpack_keys(keys, tile_faces)
         rasts.append(Rast(tri_id=untile(ids), zbuf=untile(zs),
                           n_max_tile=n_max_tile, n_big=b.n_big))

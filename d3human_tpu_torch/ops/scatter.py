@@ -5,10 +5,13 @@ Counterpart of ``d3human_tpu/ops/scatter.py``. ``coo_scatter_add`` is
 ``[0, out_rows)`` — negatives included — are dropped; ``sorted_idx=True``
 skips the sort for already-ascending indices.
 
-On a CUDA tensor the wrapper sorts by destination and launches the
-hand-written deterministic segmented-sum kernel ``csrc/scatter.cu`` (which
-replaces the Pallas kernel ``d3human_tpu/ops/scatter.py:41 _scatter_kernel``;
-the source note there says what bounds it). On a CPU tensor it runs
+On a CUDA tensor the wrapper does, in one call into ``csrc/scatter.cu``,
+what ``sort_rows`` (one hand-written pass that writes int32 keys and an
+int32 iota, then a stable radix sort over the key bits that can be set) and
+``segmented_sum`` (the hand-written deterministic tiled segmented sum, two
+launches per call, which replaces the Pallas kernel
+``d3human_tpu/ops/scatter.py:41 _scatter_kernel``; the source note there
+says what bounds it) do one after the other. On a CPU tensor it runs
 ``coo_scatter_add_plain``, which adds the same sorted rows in the same order.
 
 ``gather_rows``, ``segment_add_rows`` and ``scatter_rows_sorted`` are
@@ -19,109 +22,252 @@ the source note there says what bounds it). On a CPU tensor it runs
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from d3human_tpu_torch.ops import cuda_lib
 
-_SIG = {"d3h_coo_scatter_add": (
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p)}
-CHUNK = 32      # sorted rows per thread and level (CHUNK in csrc/scatter.cu)
+_PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIG = {
+    "d3h_scatter_keys": (_PTR, _INT, _LL, _INT, _PTR, _PTR, _PTR),
+    "d3h_sort_pairs": (_PTR, _PTR, _PTR, _PTR, _LL, _INT, _PTR,
+                       ctypes.POINTER(ctypes.c_ulonglong), _PTR),
+    "d3h_segmented_sum": (_PTR, _PTR, _PTR, _LL, _INT, _INT, _INT, _PTR,
+                          _PTR, _PTR, _PTR),
+    "d3h_coo_scatter_add": (_PTR, _INT, _PTR, _LL, _INT, _INT, _INT, _INT,
+                            _INT, _PTR, ctypes.c_ulonglong, _PTR, _PTR),
+}
+# the constants of csrc/scatter.cu
+THREADS = 256   # threads of a CTA
+TILE = 1024     # sorted rows per CTA of the tile kernel
+COLS = 16       # columns per CTA
+CHUNK = 16      # entries per thread in the shared-memory levels
+NONE = 2 ** 31 - 1      # key of an entry that carries nothing
 
 
-def _scratch_rows(n: int) -> int:
-    """Rows of the partial lists of all levels after the first."""
-    total = 0
-    while n > CHUNK:
-        n = 2 * -(-n // CHUNK)
-        total += n
-    return total
+def _launches(n: int, tile: int = TILE) -> int:
+    """Launches of the sum kernels for n sorted rows: the tile kernel, and
+    the carry kernel when there is more than one tile."""
+    return 0 if n == 0 else 1 if n <= tile else 2
 
 
-def _levels(n: int) -> int:
-    """Launches of the level kernel for n sorted rows (0 for n == 0)."""
-    count = 0
-    while n:
-        count += 1
-        if n <= CHUNK:
-            break
-        n = 2 * -(-n // CHUNK)
-    return count
-
-
-def _sorted_rows(idx: torch.Tensor, vals: torch.Tensor, out_rows: int,
-                 sorted_idx: bool):
-    """Out-of-range rows -> sentinel ``out_rows`` (before the sort, so
-    negatives do not land at the front), then a stable sort by destination.
-    Returns (sorted int32 keys, permutation or None)."""
+def sort_rows_plain(idx: torch.Tensor, out_rows: int, sorted_idx: bool):
+    """Plain PyTorch version of ``sort_rows``. Out-of-range rows get the
+    sentinel key ``out_rows`` before the sort, so negatives do not land at
+    the front."""
     idx = idx.reshape(-1)
     keys = torch.where((idx >= 0) & (idx < out_rows), idx,
                        out_rows).to(torch.int32)
     if sorted_idx:
         return keys, None
     keys, perm = torch.sort(keys, stable=True)
-    return keys, perm
+    return keys, perm.to(torch.int32)
 
 
-def _segsum_level(keys: torch.Tensor, vals: torch.Tensor, out: torch.Tensor):
-    """One level of the kernel's segmented sum, for all chunks at once: runs
-    inside a chunk are added to ``out`` (its last row absorbs sentinels and
-    the rows that finish nothing), the pieces of runs that cross a chunk
-    edge come back as the next level's (keys [2 * chunks], vals)."""
-    n, C = vals.shape
-    nch = -(-n // CHUNK)
-    out_rows = out.shape[0] - 1
-    pad = nch * CHUNK - n
-    k = torch.cat([keys, keys[-1:].expand(pad)]).reshape(nch, CHUNK)
-    v = torch.cat([vals, vals.new_zeros((pad, C))]).reshape(nch, CHUNK, C)
-    starts = torch.arange(nch, device=keys.device) * CHUNK
-    ends = (starts + CHUNK).clamp(max=n)
-    cont_in = (starts > 0) & (keys[(starts - 1).clamp(min=0)] == keys[starts])
-    cont_out = (ends < n) & (keys[ends.clamp(max=n - 1)] == keys[ends - 1])
+@functools.lru_cache(maxsize=256)
+def _sort_scratch_bytes(n: int, bits: int) -> int:
+    """Bytes of scratch the radix sort of n pairs wants (a host-side query)."""
+    size = ctypes.c_ulonglong(0)
+    cuda_lib.check(cuda_lib.load("scatter", _SIG).d3h_sort_pairs(
+        0, 0, 0, 0, n, bits, 0, ctypes.byref(size), 0),
+        "sort_pairs (size query)")
+    return max(size.value, 1)
+
+
+def _key_bits(out_rows: int) -> int:
+    """The bits a key can set: the largest key is the sentinel out_rows."""
+    return max(out_rows.bit_length(), 1)
+
+
+def _aligned(vals: torch.Tensor) -> torch.Tensor:
+    """Contiguous, and on a 16-byte line: the kernel loads 16 bytes at once."""
+    vals = vals.contiguous()
+    return vals.clone() if vals.data_ptr() % 16 else vals
+
+
+def _int_idx(idx: torch.Tensor) -> torch.Tensor:
+    idx = idx.reshape(-1)
+    if idx.dtype not in (torch.int32, torch.int64):
+        idx = idx.long()
+    return idx.contiguous()
+
+
+def sort_rows(idx: torch.Tensor, out_rows: int, sorted_idx: bool = False):
+    """(sorted int32 keys, int32 permutation or None when ``sorted_idx``).
+    On the card the keys and an iota come from one kernel and the stable
+    sort is ``cub::DeviceRadixSort`` over ``out_rows.bit_length()`` bits."""
+    n = idx.numel()
+    if idx.device.type == "cpu" or n == 0:
+        return sort_rows_plain(idx, out_rows, sorted_idx)
+    idx = _int_idx(idx)
+    dev = idx.device
+
+    def empty():
+        return torch.empty((n,), dtype=torch.int32, device=dev)
+
+    lib = cuda_lib.load("scatter", _SIG)
+    stream = cuda_lib.stream_ptr(dev)
+    keys, iota = empty(), None if sorted_idx else empty()
+    cuda_lib.check(lib.d3h_scatter_keys(
+        idx.data_ptr(), int(idx.dtype == torch.int64), n, out_rows,
+        keys.data_ptr(), 0 if iota is None else iota.data_ptr(), stream),
+        "scatter_keys")
+    if sorted_idx:
+        return keys, None
+    bits = _key_bits(out_rows)
+    size = ctypes.c_ulonglong(_sort_scratch_bytes(n, bits))
+    temp = torch.empty((size.value,), dtype=torch.uint8, device=dev)
+    skeys, perm = empty(), empty()
+    cuda_lib.check(lib.d3h_sort_pairs(
+        keys.data_ptr(), skeys.data_ptr(), iota.data_ptr(), perm.data_ptr(),
+        n, bits, temp.data_ptr(), ctypes.byref(size), stream), "sort_pairs")
+    return skeys, perm
+
+
+def _pieces(length: int, block: int, piece: int, npieces: int, device):
+    """(starts, ends) of ``npieces`` pieces of ``piece`` entries in every
+    block of ``block`` entries of a list of ``length``; a piece past its
+    block's end is empty (start == end)."""
+    nblocks = -(-length // block)
+    b0 = torch.arange(nblocks, device=device)[:, None] * block
+    lim = (b0 + block).clamp(max=length)
+    s = b0 + torch.arange(npieces, device=device)[None, :] * piece
+    e = torch.minimum(s + piece, lim)
+    return torch.minimum(s, e).reshape(-1), e.reshape(-1)
+
+
+def _segsum_level(keys, vals, out, starts, ends, steps: int):
+    """One level of the kernel's segmented sum, for all pieces at once: each
+    piece adds its entries in order; a run inside a piece goes to ``out``
+    (its last row absorbs sentinels), the parts of runs that cross a piece's
+    edge come back as the next level's (keys [2 * pieces], vals), with key
+    NONE where nothing crosses."""
+    n = keys.shape[0]
+    empty = starts >= ends
+    s = starts.clamp(max=n - 1)
+    last = (ends - 1).clamp(min=0)
+    pos = s[:, None] + torch.arange(steps, device=keys.device)[None, :]
+    inside = pos < ends[:, None]
+    pos = torch.minimum(pos, last[:, None])
+    k = keys[pos]                       # past the end: the last key again
+    v = torch.where(inside[..., None], vals[pos], 0.0)
+    cont_in = ~empty & (starts > 0) & (keys[(s - 1).clamp(min=0)] == keys[s])
+    cont_out = ~empty & (ends < n) & (keys[ends.clamp(max=n - 1)]
+                                      == keys[last])
     new = torch.ones_like(k, dtype=torch.bool)
     new[:, 1:] = k[:, 1:] != k[:, :-1]
     fin = torch.ones_like(new)
     fin[:, :-1] = new[:, 1:]
+    out_rows = out.shape[0] - 1
     first = torch.ones_like(cont_in)
-    acc = vals.new_zeros((nch, C))
+    acc = vals.new_zeros((starts.shape[0], vals.shape[1]))
     head, tail = torch.zeros_like(acc), torch.zeros_like(acc)
-    for j in range(CHUNK):
+    for j in range(steps):
         if j:
             first = first & ~new[:, j]
             acc = torch.where(new[:, j, None], 0.0, acc)
         acc = acc + v[:, j]
-        is_tail = fin[:, j] & cont_out if j == CHUNK - 1 else None
         is_head = fin[:, j] & first & cont_in
-        done = fin[:, j] & ~is_head
-        if is_tail is not None:
+        done = fin[:, j] & ~is_head & ~empty
+        if j == steps - 1:
+            is_tail = fin[:, j] & cont_out
             is_head = is_head & ~is_tail
             done = done & ~is_tail
             tail = torch.where(is_tail[:, None], acc, tail)
         head = torch.where(is_head[:, None], acc, head)
         dest = torch.where(done & (k[:, j] < out_rows), k[:, j], out_rows)
         out.index_put_((dest.long(),), acc, accumulate=True)
-    next_keys = torch.stack([keys[starts], keys[ends - 1]], 1).reshape(-1)
-    next_vals = torch.stack([head, tail], 1).reshape(-1, C)
-    return next_keys, next_vals
+    none = torch.full_like(keys[s], NONE)
+    next_keys = torch.stack([torch.where(cont_in, keys[s], none),
+                             torch.where(cont_out, keys[last], none)], 1)
+    return next_keys.reshape(-1), torch.stack([head, tail], 1).reshape(
+        -1, vals.shape[1])
+
+
+def _segsum_launch(keys, vals, out, tile: int):
+    """One launch of the sum kernel over ``vals`` [n, <= COLS]: every tile
+    of ``tile`` rows is cut into one piece per thread group, then the
+    crossing parts are reduced in chunks of CHUNK until two are left per
+    tile. Returns those (keys, vals [2 * tiles, C])."""
+    groups = THREADS // -(-vals.shape[1] // 4)
+    dev = keys.device
+    r = -(-tile // groups)
+    keys, vals = _segsum_level(
+        keys, vals, out, *_pieces(keys.shape[0], tile, r, groups, dev), r)
+    e = 2 * groups
+    while True:
+        chunks = -(-e // CHUNK)
+        keys, vals = _segsum_level(
+            keys, vals, out, *_pieces(keys.shape[0], e, CHUNK, chunks, dev),
+            CHUNK)
+        if chunks == 1:
+            return keys, vals
+        e = 2 * chunks
+
+
+def segmented_sum_plain(keys: torch.Tensor, perm, vals: torch.Tensor,
+                        out_rows: int, tile: int = TILE) -> torch.Tensor:
+    """Plain PyTorch version of ``segmented_sum``: the kernels' launches and
+    levels with every addition in their order."""
+    v = vals if perm is None else vals[perm.long()]
+    out = torch.zeros((out_rows + 1, vals.shape[1]), dtype=vals.dtype,
+                      device=vals.device)
+    n = keys.shape[0]
+    for c0 in range(0, vals.shape[1] if n else 0, COLS):
+        ob = out[:, c0:c0 + COLS]
+        ck, cv = _segsum_launch(keys, v[:, c0:c0 + COLS], ob, tile)
+        if n > tile:
+            _segsum_launch(ck, cv, ob, ck.shape[0])
+    return out[:out_rows]
 
 
 def coo_scatter_add_plain(idx: torch.Tensor, vals: torch.Tensor,
                           out_rows: int, sorted_idx: bool = False
                           ) -> torch.Tensor:
-    """Plain PyTorch version: the kernel's sort and its levels of chunked
-    segmented sums, with every addition in the kernel's order."""
-    keys, perm = _sorted_rows(idx, vals, out_rows, sorted_idx)
-    v = vals if perm is None else vals[perm]
-    out = torch.zeros((out_rows + 1, vals.shape[1]), dtype=vals.dtype,
-                      device=vals.device)
-    while keys.shape[0]:
-        last = keys.shape[0] <= CHUNK
-        keys, v = _segsum_level(keys, v, out)
-        if last:
-            break
-    return out[:out_rows]
+    """Plain PyTorch version: a stable sort by destination, then
+    ``segmented_sum_plain``."""
+    keys, perm = sort_rows_plain(idx, out_rows, sorted_idx)
+    return segmented_sum_plain(keys, perm, vals, out_rows)
+
+
+def segmented_sum(keys: torch.Tensor, perm, vals: torch.Tensor,
+                  out_rows: int, tile: int = TILE) -> torch.Tensor:
+    """Sorted int32 ``keys`` [N] (a key >= out_rows drops its row), the
+    sort's int32 ``perm`` (None: ``vals`` are in key order), ``vals``
+    [N, C] f32 on the card -> [out_rows, C] f32 sums of the runs of equal
+    keys, by the hand-written kernels."""
+    N, C = vals.shape
+    dev = vals.device
+    if dev.type != "cuda" or keys.device != dev or keys.dtype != torch.int32:
+        raise ValueError("segmented_sum: int32 keys and vals on one CUDA "
+                         "device (segmented_sum_plain takes CPU tensors)")
+    if keys.shape != (N,) or (perm is not None and (
+            perm.shape != (N,) or perm.dtype != torch.int32)):
+        raise ValueError(f"segmented_sum: keys and perm must be int32 [N] "
+                         f"for vals [N, C], got {tuple(keys.shape)} for "
+                         f"{tuple(vals.shape)}")
+    if not 1 <= tile <= 2048:
+        raise ValueError("segmented_sum: 1 <= tile <= 2048")
+    vals = _aligned(vals)
+    keys = keys.contiguous()
+    out = torch.empty((out_rows, C), dtype=torch.float32, device=dev)
+    if out_rows == 0 or C == 0:
+        return out
+    tiles = -(-N // tile)
+    ckeys = torch.empty((2 * tiles,), dtype=torch.int32, device=dev)
+    cvals = torch.empty((2 * tiles, C), dtype=torch.float32, device=dev)
+    lib = cuda_lib.load("scatter", _SIG)
+    cuda_lib.check(lib.d3h_segmented_sum(
+        keys.data_ptr(), 0 if perm is None else perm.data_ptr(),
+        vals.data_ptr(), N, C, out_rows, tile, out.data_ptr(),
+        ckeys.data_ptr(), cvals.data_ptr(), cuda_lib.stream_ptr(dev)),
+        "segmented_sum")
+    segmented_sum.launches += _launches(N, tile)
+    return out
+
+
+segmented_sum.launches = 0      # launches made through this function alone
 
 
 def coo_scatter_add(idx: torch.Tensor, vals: torch.Tensor, out_rows: int,
@@ -138,29 +284,37 @@ def coo_scatter_add(idx: torch.Tensor, vals: torch.Tensor, out_rows: int,
     if vals.dtype != torch.float32:
         raise ValueError(f"coo_scatter_add: vals must be float32, got "
                          f"{vals.dtype}")
-    if out_rows >= 2 ** 31 - 1:
-        raise ValueError("coo_scatter_add: out_rows must fit int32")
+    if out_rows >= 2 ** 31 - 1 or vals.shape[0] >= 2 ** 31 - 1:
+        raise ValueError("coo_scatter_add: out_rows and N must fit int32")
+    if idx.numel() != vals.shape[0]:
+        raise ValueError(f"coo_scatter_add: {idx.numel()} destinations for "
+                         f"{vals.shape[0]} rows")
     N, C = vals.shape
-    keys, perm = _sorted_rows(idx, vals, out_rows, sorted_idx)
-    vals = vals.contiguous()
-    keys = keys.contiguous()
-    out = torch.empty((out_rows, C), dtype=torch.float32, device=vals.device)
+    dev = vals.device
+    out = torch.empty((out_rows, C), dtype=torch.float32, device=dev)
     if out_rows == 0 or C == 0:
         return out
-    m = _scratch_rows(N)
-    skeys = torch.empty((m,), dtype=torch.int32, device=vals.device)
-    svals = torch.empty((m, C), dtype=torch.float32, device=vals.device)
-    lib = cuda_lib.load("scatter", _SIG)
-    cuda_lib.check(lib.d3h_coo_scatter_add(
-        keys.data_ptr(), 0 if perm is None else perm.data_ptr(),
-        vals.data_ptr(), N, C, out_rows, out.data_ptr(), skeys.data_ptr(),
-        svals.data_ptr(), cuda_lib.stream_ptr(vals.device)),
-        "coo_scatter_add")
-    coo_scatter_add.launches += _levels(N)     # one per segsum_level launch
+    idx = _int_idx(idx)
+    vals = _aligned(vals)
+    # what sort_rows and segmented_sum do, in one call into the library
+    # with one scratch tensor (its layout: d3h_coo_scatter_add)
+    bits = _key_bits(out_rows)
+    scratch = 0 if sorted_idx or N == 0 else _sort_scratch_bytes(N, bits)
+    tiles = -(-N // TILE)
+    words = (0 if sorted_idx else 4 * (N + 3)) + 2 * tiles * (1 + C) + 4
+    work = torch.empty((-(-scratch // 256) * 256 + 4 * words,),
+                       dtype=torch.uint8, device=dev)
+    cuda_lib.check(cuda_lib.load("scatter", _SIG).d3h_coo_scatter_add(
+        idx.data_ptr(), int(idx.dtype == torch.int64), vals.data_ptr(), N, C,
+        out_rows, int(sorted_idx), bits, TILE, work.data_ptr(), scratch,
+        out.data_ptr(), cuda_lib.stream_ptr(dev)), "coo_scatter_add")
+    coo_scatter_add.launches += _launches(N)
+    coo_scatter_add.calls += 1
     return out
 
 
-coo_scatter_add.launches = 0
+coo_scatter_add.launches = 0    # launches of the two sum kernels
+coo_scatter_add.calls = 0       # calls of the wrapper on CUDA tensors
 
 
 def _gather_masked(g: torch.Tensor, idx: torch.Tensor,

@@ -23,17 +23,21 @@ def cuda_device():
     return "cuda"
 
 
-def _binned_rows(seed, F, res, tile):
-    """Fused face rows of a random triangle soup, binned on the CPU."""
+def _binned_rows(seed, F, res, tile, mfpt=256, bin_expand=8,
+                 max_global=128, small=0.0):
+    """Fused face rows of a random triangle soup, binned on the CPU.
+    ``small``: the share of faces shrunk to a tenth (many per tile)."""
     rng = np.random.default_rng(seed)
-    V = 3 * F
-    xy = rng.uniform(-0.9, 0.9, (V, 2))
-    z = rng.uniform(0.2, 0.8, (V, 1))
-    clip = np.concatenate([xy, z, np.ones((V, 1))], 1).astype(np.float32)
-    faces = rng.integers(0, V, (F, 3)).astype(np.int32)
-    return bin_faces(torch.as_tensor(clip), torch.as_tensor(faces),
-                     torch.ones(F, dtype=torch.bool), res, tile=tile,
-                     max_faces_per_tile=256, bin_expand=8, max_global=128)
+    xy = rng.uniform(-0.9, 0.9, (F, 3, 2))
+    shrink = np.where(rng.random(F) < small, 0.1, 1.0)[:, None, None]
+    xy = xy[:, :1] + (xy - xy[:, :1]) * shrink
+    z = rng.uniform(0.2, 0.8, (F, 3, 1))
+    clip = np.concatenate([xy, z, np.ones((F, 3, 1))], -1).astype(np.float32)
+    faces = np.arange(3 * F, dtype=np.int32).reshape(F, 3)
+    return bin_faces(torch.as_tensor(clip.reshape(3 * F, 4)),
+                     torch.as_tensor(faces), torch.ones(F, dtype=torch.bool),
+                     res, tile=tile, max_faces_per_tile=mfpt,
+                     bin_expand=bin_expand, max_global=max_global)
 
 
 @pytest.mark.cuda
@@ -56,45 +60,145 @@ def test_cuda_first_k_equals_plain(cuda_device, n, k, p):
     (291_600, 1_166_400, 4, True, 0.0),
     (874_800, 1_048_576, 14, False, 0.75),  # shaded fused vertex gather
     (291_600, 357_911, 16, False, 0.25),    # corner-packed hash level
-    (583_200, 1_166_400, 4, False, 0.0)])   # fused 4-tap bilinear gather
+    (583_200, 1_166_400, 4, False, 0.0),    # fused 4-tap bilinear gather
+    (2_359_296, 262_144, 3, False, 0.0),    # face-normal corners
+    (30_000, 700, 5, False, 0.5),           # widths that are no multiple of 4
+    (30_000, 700, 1, False, 0.0),
+    (9_000, 40, 20, False, 0.3),            # wider than one CTA's 16 columns
+    (1023, 300, 14, False, 0.0),            # around one tile and two tiles
+    (1024, 300, 8, False, 0.6),
+    (1025, 300, 5, False, 0.0),
+    (2047, 90, 3, False, 0.0),
+    (2048, 90, 4, True, 0.0),
+    (2049, 90, 16, False, 0.6),
+    (1, 5, 2, False, 0.0)])
 def test_cuda_scatter_equals_plain_and_deterministic(cuda_device, N, V, C,
                                                      srt, hot):
-    """The plain version repeats the kernel's additions in its order, so
-    the two agree bit for bit."""
+    """The plain version repeats the kernels' additions in their order, so
+    the two agree bit for bit; two runs of the kernels too. ``index_add_``
+    sums in another order: float32 tolerance rel 1e-4 / abs 1e-4 on rows
+    that take up to 2/3 of all values."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
     idx = torch.randint(-5, V + 5, (N,), generator=g, device=cuda_device)
     idx[torch.rand((N,), generator=g, device=cuda_device) < hot] = 3
-    if srt:
+    if srt and N <= V:
         idx = torch.sort(torch.randperm(V + 5, generator=g,
                                         device=cuda_device)[:N]).values
+    elif srt:
+        idx = torch.sort(idx.clamp(min=0)).values
     vals = torch.randn((N, C), generator=g, device=cuda_device)
-    before = scatter.coo_scatter_add.launches
+    before = (scatter.coo_scatter_add.launches, scatter.coo_scatter_add.calls)
     a = scatter.coo_scatter_add(idx, vals, V, sorted_idx=srt)
-    assert scatter.coo_scatter_add.launches - before == scatter._levels(N)
+    assert (scatter.coo_scatter_add.launches - before[0],
+            scatter.coo_scatter_add.calls - before[1]) == (
+        2 if N > scatter.TILE else 1, 1)
     b = scatter.coo_scatter_add(idx, vals, V, sorted_idx=srt)
     assert torch.equal(a, b)
     assert torch.equal(a, scatter.coo_scatter_add_plain(idx, vals, V, srt))
+    keep = (idx >= 0) & (idx < V)
+    ref = torch.zeros((V + 1, C), dtype=torch.float64,
+                      device=cuda_device).index_add_(
+        0, torch.where(keep, idx, V), vals.double())[:V].float()
+    torch.testing.assert_close(a, ref, rtol=1e-4, atol=1e-4 * max(
+        1.0, (hot * N) ** 0.5))
+    # the narrow radix sort and torch.sort give one stable order, and a
+    # tile of 2048 rows the same sums in another order
+    keys, perm = scatter.sort_rows(idx, V, srt)
+    k2, p2 = scatter.sort_rows_plain(idx, V, srt)
+    assert torch.equal(keys, k2) and (srt or torch.equal(perm, p2))
+    wide = scatter.segmented_sum(keys, perm, vals, V, tile=2048)
+    assert torch.equal(wide, scatter.segmented_sum_plain(keys, perm, vals, V,
+                                                         tile=2048))
+
+
+@pytest.mark.cuda
+def test_cuda_scatter_int64_idx_and_unaligned_vals(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    N, V, C = 5000, 800, 8
+    idx = torch.randint(-2, V + 2, (N,), generator=g, device=cuda_device)
+    buf = torch.randn((N * C + 3,), generator=g, device=cuda_device)
+    vals = buf[3:].reshape(N, C)            # 12 bytes off a 16-byte line
+    a = scatter.coo_scatter_add(idx, vals, V)
+    assert torch.equal(a, scatter.coo_scatter_add(idx.int(), vals.clone(), V))
+    assert torch.equal(a, scatter.coo_scatter_add_plain(idx, vals, V))
+
+
+RESOLVE_SCENES = {
+    "soup": dict(seed=5, F=400, res=(64, 256), tile=(8, 128)),
+    # tiles that overflow their own list, live faces in the shared list
+    "overflow": dict(seed=11, F=3000, res=(64, 256), tile=(8, 128), mfpt=128,
+                     bin_expand=1, max_global=128, small=0.9),
+    # narrow tiles: fewer threads than a block of rows has 16-byte pieces
+    "narrow": dict(seed=6, F=300, res=(32, 64), tile=(8, 16), mfpt=128),
+}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("peel", [False, True])
-def test_cuda_resolve_equals_plain(cuda_device, peel):
-    b = _binned_rows(seed=5, F=400, res=(64, 256), tile=(8, 128))
-    rows = b.tile_rows.to(cuda_device)
+@pytest.mark.parametrize("scene", sorted(RESOLVE_SCENES))
+def test_cuda_resolve_equals_plain(cuda_device, scene, peel):
+    """Every form of the kernel (copied rows or rows by face id, live
+    ranges or all slots, slots cut over 1 to 8 CTAs, 1 to 8 pixels a
+    thread) against the plain full scan: exact keys."""
+    kw = RESOLVE_SCENES[scene]
+    tile = kw["tile"]
+    b = _binned_rows(**kw)
+    if scene == "overflow":
+        assert int((b.starts[1:] - b.starts[:-1]).max()) > kw["mfpt"]
+        assert int(b.global_range[1]) > 0
     ntx = b.grid[1]
-    floor = (raster_resolve.resolve_tiles(rows, (8, 128), ntx)
+    tile_rows = b.tile_rows.to(cuda_device)
+    rows, all_faces = b.rows.to(cuda_device), b.all_faces.to(cuda_device)
+    ranges = dict(counts=b.counts.to(cuda_device), global_range=(
+        b.global_range[0], b.global_range[1].to(cuda_device)))
+    floor = (raster_resolve.resolve_tiles(tile_rows, tile, ntx)
              if peel else None)
-    got = raster_resolve.resolve_tiles(rows, (8, 128), ntx, floor=floor)
-    want = raster_resolve.resolve_tiles_plain(rows, (8, 128), ntx,
+    want = raster_resolve.resolve_tiles_plain(tile_rows, tile, ntx,
                                               floor=floor)
-    assert torch.equal(got, want)
+    assert (want != raster_resolve.MISS_KEY).any()
+    rt = raster_resolve.resolve_tiles
+    before = (rt.launches, rt.floor_launches)
+    n = 0
+    for kwargs in [dict(), ranges]:
+        for chunk in (None, 128, 256, 512, 1024):
+            for pix in (None, 1, 2, 4, 8):
+                got = raster_resolve.resolve_tiles(
+                    tile_rows, tile, ntx, floor=floor, chunk=chunk, pix=pix,
+                    **kwargs)
+                assert torch.equal(got, want), (kwargs.keys(), chunk, pix)
+                got = raster_resolve.resolve_tiles_indexed(
+                    rows, all_faces, tile, ntx, floor=floor, chunk=chunk,
+                    pix=pix, **kwargs)
+                assert torch.equal(got, want), (kwargs.keys(), chunk, pix)
+                n += 2
+    assert (rt.launches - before[0], rt.floor_launches - before[1]) == (
+        n, n if peel else 0)
+    assert torch.equal(want, raster_resolve.resolve_tiles_plain(
+        tile_rows, tile, ntx, floor=floor, **ranges))
+
+
+@pytest.mark.cuda
+def test_cuda_resolve_all_miss_floor_leaves_early(cuda_device):
+    """A floor of MISS_KEY on every pixel lets nothing through."""
+    kw = RESOLVE_SCENES["soup"]
+    b = _binned_rows(**kw)
+    floor = torch.full((b.grid[2], 8 * 128), raster_resolve.MISS_KEY,
+                       dtype=torch.int32, device=cuda_device)
+    for chunk in (256, 1024):
+        got = raster_resolve.resolve_tiles_indexed(
+            b.rows.to(cuda_device), b.all_faces.to(cuda_device), kw["tile"],
+            b.grid[1], floor=floor, counts=b.counts.to(cuda_device),
+            global_range=(b.global_range[0],
+                          b.global_range[1].to(cuda_device)), chunk=chunk)
+        assert torch.equal(got, floor)
 
 
 @pytest.mark.cuda
 def test_cuda_rasterize_layers_equal_plain(cuda_device, monkeypatch):
-    """``rasterize(layers=3)`` with the kernel against the same peel loop
-    over the plain resolve, on the same card tensors: ids and depths of
-    every layer exact, 3 launches of which 2 with a floor."""
+    """``rasterize(layers=3)`` with the kernel (rows by face id, live
+    ranges) against the same peel loop over the plain full scan, on the
+    same card tensors: ids and depths of every layer exact, 3 launches of
+    which 2 with a floor."""
     from d3human_tpu_torch.ops import rasterizer
 
     rng = np.random.default_rng(7)
@@ -112,9 +216,10 @@ def test_cuda_rasterize_layers_equal_plain(cuda_device, monkeypatch):
     got = rasterizer.rasterize(*args, layers=3)
     assert (rt.launches - before[0], rt.floor_launches - before[1]) == (3, 2)
     monkeypatch.setattr(
-        rasterizer, "resolve_tiles",
-        lambda rows, tile, ntx, floor=None:
-        raster_resolve.resolve_tiles_plain(rows, tile, ntx, floor))
+        rasterizer, "resolve_tiles_indexed",
+        lambda rows, all_faces, tile, ntx, floor=None, **ranges:
+        raster_resolve.resolve_tiles_plain(rows[all_faces.long()], tile, ntx,
+                                           floor))
     want = rasterizer.rasterize(*args, layers=3)
     assert (rt.launches - before[0], rt.floor_launches - before[1]) == (3, 2)
     hits = [int((lay.tri_id > 0).sum()) for lay in got]
