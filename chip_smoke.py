@@ -21,15 +21,16 @@ object per line:
   kernels      each kernel against its plain version on the scene's own
                inputs: first_k exactly equal; the scatter within rel 1e-5 /
                abs 1e-6 and bitwise equal across two runs; the tile resolve
-               (without and with a depth-peel floor; copied rows or rows by
-               face id; live ranges or all slots; every chunk and pixels-
-               per-thread variant) exactly equal to the plain FULL scan.
-               Time of the kernel's wrapper, of the plain version and of a
-               library call computing the same function (CUDA events); the
-               scatter's time split into key preparation + sort and the sum
-               kernels, beside the plain version's torch.sort and the
-               where + int64 sort it replaced; the binning with and without
-               the per-slot copy of the rows
+               (without and with a depth-peel floor; the main path's form,
+               rows by face id over the live ranges, and the parity form,
+               copied rows over all slots) exactly equal to the plain FULL
+               scan. Time of the kernel's wrapper, of the plain version and
+               of a library call computing the same function (CUDA events),
+               and the wrapper's device time alone (CUDA-graph replays); the
+               scatter's device time split into key preparation + sort and
+               the sum kernels from the profiler's kernel rows of the
+               wrapper's own calls, beside the plain version's torch.sort;
+               the binning with and without the per-slot copy of the rows
   step         warm-up step, then INIT_STEPS timed init training steps
                (CUDA events) with every kernel launch count reset just
                before and read just after; losses finite, n_cross > 0,
@@ -240,6 +241,37 @@ def graph_ms(fn, reps: int = 20) -> float:
     return cuda_ms(graph.replay, reps=reps)
 
 
+def parts_ms(fn, parts: dict, reps: int = 5) -> dict:
+    """Device time per call of ``fn`` by part, from the profiler's rows of
+    the kernels (and memsets) that ``fn`` itself launches: ``parts`` maps a
+    part's name to substrings of its kernels' names; what matches none is
+    ``other_ms``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {name: 0.0 for name in (*parts, "other_ms")}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        part = next((name for name, keys in parts.items()
+                     if any(k in e.name for k in keys)), "other_ms")
+        out[part] += e.device_time_total / 1e3 / reps
+    return out
+
+
+# the scatter's kernels by part (names as the profiler prints them)
+SCATTER_PARTS = {"prep_sort_ms": ("scatter_keys_kernel", "RadixSort"),
+                 "sum_ms": ("segsum_tile_kernel", "segsum_carry_kernel",
+                            "Memset")}
+
+
 def bound_ms(n_bytes: float, n_ops: float = 0.0):
     t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
     t_ops = n_ops / H100_F32_OPS_PER_S * 1e3
@@ -332,6 +364,8 @@ def phase_kernels(sc: dict) -> list:
         fk_times.append(dict(
             call=what, n=n, k=k, set=int(mask.sum()),
             ms=cuda_ms(lambda: compaction.first_k_indices(mask, k, n)),
+            device_ms=graph_ms(lambda: compaction.first_k_indices(mask, k,
+                                                                  n)),
             plain_ms=cuda_ms(lambda: compaction.first_k_plain(mask, k, n)),
             library_ms=cuda_ms(library)))
     emit("kernel_first_k", exact=True, calls=fk_times)
@@ -342,7 +376,8 @@ def phase_kernels(sc: dict) -> list:
                      replaces="d3human_tpu/ops/compaction.py:37",
                      shape=f"n={big['n']} k={big['k']}", max_abs_err=0.0,
                      ms=big["ms"], plain_ms=big["plain_ms"], bound_ms=b,
-                     bound_by=by, library_ms=big["library_ms"]))
+                     bound_by=by, library_ms=big["library_ms"],
+                     device_ms=big["device_ms"]))
 
     # ---- scatter: vertex-gather backward, face-normal corner backward,
     # and the sorted image scatter, at their main-path shapes. Rows that
@@ -403,27 +438,12 @@ def phase_kernels(sc: dict) -> list:
         err_lib = (got - ref).abs()
         check(bool((err_lib <= 1e-4 + 1e-4 * ref.abs()).all()),
               f"scatter {what}: against index_add_ {float(err_lib.max())}")
-        # the parts; the narrow radix sort gives torch.sort's stable order
-        keys, perm = scatter.sort_rows(idx, rows_out, srt)
-        k2, p2 = scatter.sort_rows_plain(idx, rows_out, srt)
-        check(torch.equal(keys, k2) and (srt or torch.equal(perm, p2)),
-              f"scatter {what}: sort_rows != its plain version")
-        check(torch.equal(got, scatter.segmented_sum(keys, perm, vals,
-                                                     rows_out)),
-              f"scatter {what}: parts != wrapper")
-        # tiles of 2,048 rows add in another order: held to the plain
-        # version at that tile size
-        check(torch.equal(
-            scatter.segmented_sum(keys, perm, vals, rows_out, tile=2048),
-            scatter.segmented_sum_plain(keys, perm, vals, rows_out,
-                                        tile=2048)),
-              f"scatter {what}: tile 2048, kernel != plain")
-
-        def where_sort64(idx=idx, rows_out=rows_out, srt=srt):
-            k = torch.where((idx >= 0) & (idx < rows_out), idx,
-                            rows_out).to(torch.int32)
-            return k if srt else torch.sort(k, stable=True)
-
+        # the parts, on the wrapper's own calls; a sorted call has no
+        # key preparation and no sort
+        parts = parts_ms(lambda: scatter.coo_scatter_add(
+            idx, vals, rows_out, sorted_idx=srt), SCATTER_PARTS)
+        check(parts["sum_ms"] > 0 and (parts["prep_sort_ms"] > 0) != srt,
+              f"scatter {what}: the profiler's kernel rows {parts}")
         b, by = bound_ms(N * 4 * (1 + C) + rows_out * 4 * C)
         sc_times.append(dict(
             call=what, N=N, C=C, out_rows=rows_out, sorted=srt,
@@ -431,21 +451,15 @@ def phase_kernels(sc: dict) -> list:
             max_abs_err=float(err.max()), bitwise=torch.equal(got, want),
             ms=cuda_ms(lambda: scatter.coo_scatter_add(idx, vals, rows_out,
                                                        sorted_idx=srt)),
-            # the rest: device time alone (CUDA graph replays)
+            # device time alone (CUDA graph replays)
             device_ms=graph_ms(lambda: scatter.coo_scatter_add(
                 idx, vals, rows_out, sorted_idx=srt)),
-            prep_sort_ms=graph_ms(lambda: scatter.sort_rows(idx, rows_out,
-                                                            srt)),
-            # yardsticks for the sort part: the plain version (where, int32
-            # keys, torch.sort, int64 permutation cast to int32) and what
-            # the wrapper did before the narrow sort (the same, uncast)
+            prep_sort_ms=parts["prep_sort_ms"], sum_ms=parts["sum_ms"],
+            other_ms=parts["other_ms"],
+            # yardstick for the sort part: the plain version's where, int32
+            # keys, torch.sort and int64 permutation cast to int32
             prep_sort_plain_ms=graph_ms(lambda: scatter.sort_rows_plain(
                 idx, rows_out, srt)),
-            prep_where_sort64_ms=graph_ms(where_sort64),
-            sum_ms=graph_ms(lambda: scatter.segmented_sum(keys, perm, vals,
-                                                          rows_out)),
-            sum_tile2048_ms=graph_ms(lambda: scatter.segmented_sum(
-                keys, perm, vals, rows_out, tile=2048)),
             library_device_ms=graph_ms(library),
             plain_ms=cuda_ms(lambda: scatter.coo_scatter_add_plain(
                 idx, vals, rows_out, srt), reps=2, warm=1),
@@ -489,7 +503,7 @@ def phase_kernels(sc: dict) -> list:
     emit("bin_faces", **bin_ms)
 
     def resolve_forms(floor):
-        """Every form of the launch -> (keys of the main path's form, the
+        """Both forms of the launch -> (keys of the main path's form, the
         plain version's time, the main form's wrapper time, device times by
         form from CUDA graph replays); each checked against the plain full
         scan."""
@@ -500,17 +514,12 @@ def phase_kernels(sc: dict) -> list:
                                               floor=floor, **ranges)
         check(torch.equal(plain_ranges, want),
               "resolve: the plain version with ranges != its full scan")
-        ix = (binned.rows, binned.all_faces)
         forms = {
-            "copied rows, all slots": lambda **kw: rr.resolve_tiles(
-                tile_rows, tile, ntx, floor=floor, **kw),
-            "copied rows, live ranges": lambda **kw: rr.resolve_tiles(
-                tile_rows, tile, ntx, floor=floor, **ranges, **kw),
-            "rows by face id, all slots": lambda **kw:
-                rr.resolve_tiles_indexed(*ix, tile, ntx, floor=floor, **kw),
-            "rows by face id, live ranges": lambda **kw:
-                rr.resolve_tiles_indexed(*ix, tile, ntx, floor=floor,
-                                         **ranges, **kw),
+            "rows by face id, live ranges": lambda: rr.resolve_tiles_indexed(
+                binned.rows, binned.all_faces, tile, ntx, floor=floor,
+                **ranges),
+            "copied rows, all slots": lambda: rr.resolve_tiles(
+                tile_rows, tile, ntx, floor=floor),
         }
         main = forms["rows by face id, live ranges"]
         times = {}
@@ -519,23 +528,6 @@ def phase_kernels(sc: dict) -> list:
             check(torch.equal(got, want), f"resolve ({name}): kernel != "
                   f"plain full scan ({int((got != want).sum())} keys differ)")
             times[name] = graph_ms(fn)
-        for chunk in (1024, 512, 256, 128):
-            for pix in (1, 2, 4, 8):
-                got = main(chunk=chunk, pix=pix)
-                check(torch.equal(got, want), f"resolve chunk={chunk} "
-                      f"pix={pix}: {int((got != want).sum())} keys differ")
-                times[f"chunk={chunk} pix={pix}"] = graph_ms(
-                    lambda: main(chunk=chunk, pix=pix))
-        # the tail: one CTA per tile, with every list cut to 256 slots
-        capped = dict(ranges, counts=binned.counts.clamp(max=256))
-        times["chunk=1024, lists cut to 256 (no tail)"] = graph_ms(
-            lambda: rr.resolve_tiles_indexed(*ix, tile, ntx, floor=floor,
-                                             chunk=1024, **capped))
-        # the fixed part: the fill and a grid of CTAs that all leave at once
-        idle = dict(ranges, counts=torch.zeros_like(binned.counts))
-        times["no live slot (fill + empty CTAs)"] = graph_ms(
-            lambda: rr.resolve_tiles_indexed(*ix, tile, ntx, floor=floor,
-                                             **idle))
         return main(), plain_ms, cuda_ms(main), times
 
     got, plain_ms, ms, times = resolve_forms(None)

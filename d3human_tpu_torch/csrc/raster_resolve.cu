@@ -33,17 +33,19 @@
 //    buffers (16 KB): block k+1 arrives while block k is evaluated. TMA was
 //    not taken: the pieces are at most 8 KB, of a length that differs per
 //    tile, and in the indexed form not contiguous.
-//  * PIX pixels of one column per thread: a row is read from shared memory
+//  * PIX pixels of one column per thread (4, or 2 or 1 where 4 does not
+//    divide th): a row is read from shared memory
 //    once (four 16-byte broadcasts) for PIX pixels, and the px products of
 //    the edge and depth functions are shared by them. The depth and the key
 //    are formed only in a warp of which some pixel lies inside the face
 //    (one vote); most faces cover none of a warp's 32 x PIX pixels. Testing
 //    four rows between two branches instead of one measured 10 % slower.
-//  * The tail. A tile's slots are cut into ranges of `chunk`; grid.y CTAs
-//    take one range each and combine with an integer atomicMin on the key
-//    into an output filled with MISS_KEY. A minimum of integers does not
-//    depend on order, so the keys stay exact and repeatable. With one range
-//    (chunk >= M) the key is stored directly and nothing is filled.
+//  * The tail. A tile's slots are cut into ranges of CHUNK = 128; grid.y
+//    CTAs take one range each and combine with an integer atomicMin on the
+//    key into an output filled with MISS_KEY. A minimum of integers does
+//    not depend on order, so the keys stay exact and repeatable. With one
+//    range (M == CHUNK) the key is stored directly and nothing is filled.
+//    (Ranges of 256 to 1,024 slots and 8 pixels a thread measured slower.)
 //
 // No tensor cores: the Pallas kernel forms the edge functions as f32 MXU
 // dots; the only f32-input tensor-core path of this card is TF32, whose 10
@@ -59,7 +61,8 @@
 
 #define SLOT_BITS 10
 #define ROW_W 16
-#define BLOCK 128
+#define BLOCK 128              // rows staged at once
+#define CHUNK 128              // slots per CTA: M / CHUNK CTAs per tile
 #define MISS_KEY 0x7fffffff
 
 __global__ void fill_keys_kernel(int32_t* __restrict__ out, long long n) {
@@ -75,7 +78,7 @@ __global__ void resolve_tiles_kernel(const float* __restrict__ rows,
                                      int g0,
                                      const int32_t* __restrict__ n_global,
                                      int m, int th, int tw, int ntx,
-                                     int chunk, int32_t* __restrict__ out) {
+                                     int32_t* __restrict__ out) {
   __shared__ __align__(16) float srows[2][BLOCK * ROW_W];
   const int t = blockIdx.x;
   const int P = th * tw;
@@ -85,8 +88,8 @@ __global__ void resolve_tiles_kernel(const float* __restrict__ rows,
   int32_t* o = out + (size_t)t * P + (size_t)row0 * tw + col;
 
   // this CTA's slots: [lo, hi) cut with the tile's two live ranges
-  const int lo = blockIdx.y * chunk;
-  const int hi = min(lo + chunk, m);
+  const int lo = blockIdx.y * CHUNK;
+  const int hi = min(lo + CHUNK, m);
   int a0 = lo, a1 = hi, b0 = 0, b1 = 0;
   if (counts != nullptr) {
     a1 = min(hi, counts[t]);
@@ -207,17 +210,14 @@ __global__ void resolve_tiles_kernel(const float* __restrict__ rows,
 
 // rows: [NT, M, 16] per-slot rows (faces == null) or the face table
 // [F+1, 16] read through faces [NT, M] int32. counts [NT] and *n_global
-// bound the slots walked (null: all M). chunk: slots per CTA, a multiple of
-// 128; pix: pixels per thread, 1, 2, 4 or 8, dividing th.
+// bound the slots walked (null: all M).
 extern "C" int d3h_resolve_tiles(const void* rows, const void* faces,
                                  const void* floor_keys, const void* counts,
                                  int g0, const void* n_global, int nt, int m,
-                                 int th, int tw, int ntx, int chunk, int pix,
-                                 void* out, void* stream) {
+                                 int th, int tw, int ntx, void* out,
+                                 void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (chunk < BLOCK || chunk % BLOCK || th % pix)
-    return (int)cudaErrorInvalidValue;
-  const unsigned ny = (unsigned)((m + chunk - 1) / chunk);
+  const unsigned ny = (unsigned)((m + CHUNK - 1) / CHUNK);
   if (ny > 1) {
     const long long n = (long long)nt * th * tw;
     fill_keys_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
@@ -226,19 +226,16 @@ extern "C" int d3h_resolve_tiles(const void* rows, const void* faces,
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid(nt, ny);
+  const int pix = th % 4 == 0 ? 4 : th % 2 == 0 ? 2 : 1;
   const int threads = th * tw / pix;
 #define LAUNCH(PIX)                                                          \
   resolve_tiles_kernel<PIX><<<grid, threads, 0, s>>>(                        \
       (const float*)rows, (const int32_t*)faces, (const int32_t*)floor_keys, \
       (const int32_t*)counts, g0, (const int32_t*)n_global, m, th, tw, ntx,  \
-      chunk, (int32_t*)out)
-  switch (pix) {
-    case 1: LAUNCH(1); break;
-    case 2: LAUNCH(2); break;
-    case 4: LAUNCH(4); break;
-    case 8: LAUNCH(8); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+      (int32_t*)out)
+  if (pix == 4) LAUNCH(4);
+  else if (pix == 2) LAUNCH(2);
+  else LAUNCH(1);
 #undef LAUNCH
   return (int)cudaGetLastError();
 }

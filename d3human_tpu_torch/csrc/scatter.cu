@@ -21,15 +21,16 @@
 //    the sentinel out_rows for an index out of range) and an int32 iota.
 //    Destinations that come sorted need neither: the tile kernel maps them
 //    as it stages them.
-//  * d3h_sort_pairs is cub::DeviceRadixSort::SortPairs (stable) over the
-//    key bits that can be set, bit_length(out_rows), with the int32 iota as
-//    the value. The sort is the one library call, as the argsort is in the
+//  * The sort is cub::DeviceRadixSort::SortPairs (stable) over the key
+//    bits that can be set, bit_length(out_rows), with the int32 iota as
+//    the value. It is the one library call, as the argsort is in the
 //    JAX package. (torch.sort on the same keys, with its int64 permutation
 //    cast down, measured 1.5 to 1.9 times the time.)
-//  * segsum_tile_kernel: one CTA of 256 threads per tile of T sorted rows
-//    (and per 16 columns, so C <= 16 is one CTA). Keys and permutation of
-//    the tile go to shared memory once, coalesced. A thread owns one
-//    4-column piece of R consecutive rows, gathers them with 16-byte loads
+//  * segsum_tile_kernel: one CTA of 256 threads per tile of TILE = 1,024
+//    sorted rows (and per 16 columns, so C <= 16 is one CTA). Keys and
+//    permutation of the tile go to shared memory once, coalesced. A thread
+//    owns one 4-column piece of R consecutive rows (2,048-row tiles
+//    measured no faster), gathers them with 16-byte loads
 //    (scalar loads when C is not a multiple of 4: the rows are then not
 //    16-byte aligned) and adds them in order. A run of equal keys that
 //    begins and ends inside the piece is STORED to out: no read of the
@@ -47,7 +48,7 @@
 // The work is split by INPUT rows, so one destination that takes most of
 // the rows (the padded slots of a compacted gather all point at one
 // vertex) costs no more than any other. The order of every sum depends
-// only on N, C, T and the keys: no float atomics, two runs give the same
+// only on N, C, TILE and the keys: no float atomics, two runs give the same
 // bits, and coo_scatter_add_plain in ops/scatter.py repeats the order.
 //
 // Not used here, and why: TMA copies dense tiles, and the value rows are
@@ -61,7 +62,7 @@
 #include <cub/device/device_radix_sort.cuh>
 
 #define THREADS 256
-#define TILE_MAX 2048          // sorted rows per tile kernel CTA, at most
+#define TILE 1024              // sorted rows per CTA of the tile kernel
 #define COLS 16                // columns per CTA (blockIdx.y picks the 16)
 #define CHUNK 16               // entries per thread in the shared levels
 #define NONE 0x7fffffff        // key of an entry that carries nothing
@@ -88,24 +89,15 @@ static cudaError_t launch_keys(const void* idx, int idx64, long long n,
   return cudaGetLastError();
 }
 
-extern "C" int d3h_scatter_keys(const void* idx, int idx64, long long n,
-                                int out_rows, void* keys, void* iota,
-                                void* stream) {
-  return (int)launch_keys(idx, idx64, n, out_rows, (int32_t*)keys,
-                          (int32_t*)iota, (cudaStream_t)stream);
-}
-
-// temp == nullptr: only *temp_bytes is set (the size query).
-extern "C" int d3h_sort_pairs(const void* keys_in, void* keys_out,
-                              const void* vals_in, void* vals_out,
-                              long long n, int end_bit, void* temp,
-                              unsigned long long* temp_bytes, void* stream) {
-  size_t bytes = (size_t)*temp_bytes;
+// The bytes of scratch the sort of n pairs over end_bit key bits wants (a
+// host-side query: nothing is launched).
+extern "C" int d3h_sort_scratch_bytes(long long n, int end_bit,
+                                      unsigned long long* bytes) {
+  size_t size = 0;
   cudaError_t err = cub::DeviceRadixSort::SortPairs(
-      temp, bytes, (const int32_t*)keys_in, (int32_t*)keys_out,
-      (const int32_t*)vals_in, (int32_t*)vals_out, (int)n, 0, end_bit,
-      (cudaStream_t)stream);
-  *temp_bytes = (unsigned long long)bytes;
+      nullptr, size, (const int32_t*)nullptr, (int32_t*)nullptr,
+      (const int32_t*)nullptr, (int32_t*)nullptr, (int)n, 0, end_bit);
+  *bytes = (unsigned long long)size;
   return (int)err;
 }
 
@@ -277,14 +269,14 @@ enum { KEYS = 0, IDX32 = 1, IDX64 = 2 };
 __global__ void __launch_bounds__(THREADS)
 segsum_tile_kernel(const void* __restrict__ key, int mode,
                    const int32_t* __restrict__ perm,
-                   const float* __restrict__ vals, long long n, int t, int c,
+                   const float* __restrict__ vals, long long n, int c,
                    int out_rows, float* __restrict__ out,
                    int32_t* __restrict__ next_key,
                    float* __restrict__ next_vals) {
-  __shared__ int32_t skey[TILE_MAX + 2];
-  __shared__ int32_t sperm[TILE_MAX];
-  const long long row0 = (long long)blockIdx.x * t;
-  const int len = (int)min((long long)t, n - row0);
+  __shared__ int32_t skey[TILE + 2];
+  __shared__ int32_t sperm[TILE];
+  const long long row0 = (long long)blockIdx.x * TILE;
+  const int len = (int)min((long long)TILE, n - row0);
   for (int i = threadIdx.x; i < len + 2; i += THREADS) {
     const long long row = row0 + i - 1;
     if (row < 0 || row >= n) continue;
@@ -303,7 +295,7 @@ segsum_tile_kernel(const void* __restrict__ key, int mode,
   const int nq = (min(c - col0, COLS) + 3) / 4;
   const int groups = groups_of(nq);
   segsum_block(skey + 1, perm ? sperm : nullptr, vals, n, row0, len,
-               (t + groups - 1) / groups, c, col0, out_rows, out, next_key,
+               (TILE + groups - 1) / groups, c, col0, out_rows, out, next_key,
                next_vals, blockIdx.x);
 }
 
@@ -320,38 +312,26 @@ segsum_carry_kernel(const int32_t* __restrict__ key,
 
 // key / mode: n sorted keys or destinations (see segsum_tile_kernel); perm:
 // the sort's int32 permutation, or null when vals are already in key order.
-// carry_key / carry_vals: 2 * tiles entries of scratch (tiles = ceil(n/t)),
-// unused when n <= t. Launches: 1 when n <= t, else 2.
+// carry_key / carry_vals: 2 * tiles entries of scratch (tiles =
+// ceil(n / TILE)), unused when n <= TILE. Launches: 1 when n <= TILE, else 2.
 static cudaError_t launch_sum(const void* key, int mode, const int32_t* perm,
                               const float* vals, long long n, int c,
-                              int out_rows, int t, float* out,
-                              int32_t* carry_key, float* carry_vals,
-                              cudaStream_t s) {
+                              int out_rows, float* out, int32_t* carry_key,
+                              float* carry_vals, cudaStream_t s) {
   cudaError_t err = cudaMemsetAsync(out, 0,
                                     (size_t)out_rows * c * sizeof(float), s);
   if (err != cudaSuccess || n == 0) return err;
-  if (t < 1 || t > TILE_MAX) return cudaErrorInvalidValue;
-  const long long tiles = (n + t - 1) / t;
+  const long long tiles = (n + TILE - 1) / TILE;
   const unsigned ny = (unsigned)((c + COLS - 1) / COLS);
   const bool one = tiles == 1;
   segsum_tile_kernel<<<dim3((unsigned)tiles, ny), THREADS, 0, s>>>(
-      key, mode, perm, vals, n, t, c, out_rows, out,
+      key, mode, perm, vals, n, c, out_rows, out,
       one ? nullptr : carry_key, one ? nullptr : carry_vals);
   err = cudaGetLastError();
   if (err != cudaSuccess || one) return err;
   segsum_carry_kernel<<<dim3(1, ny), THREADS, 0, s>>>(
       carry_key, carry_vals, (int)(2 * tiles), c, out_rows, out);
   return cudaGetLastError();
-}
-
-extern "C" int d3h_segmented_sum(const void* key, const void* perm,
-                                 const void* vals, long long n, int c,
-                                 int out_rows, int t, void* out,
-                                 void* carry_key, void* carry_vals,
-                                 void* stream) {
-  return (int)launch_sum(key, KEYS, (const int32_t*)perm, (const float*)vals,
-                         n, c, out_rows, t, (float*)out, (int32_t*)carry_key,
-                         (float*)carry_vals, (cudaStream_t)stream);
 }
 
 static long long up4(long long x) { return (x + 3) & ~3LL; }
@@ -364,11 +344,10 @@ static long long up4(long long x) { return (x + 3) & ~3LL; }
 extern "C" int d3h_coo_scatter_add(const void* idx, int idx64,
                                    const void* vals, long long n, int c,
                                    int out_rows, int sorted, int end_bit,
-                                   int t, void* work,
-                                   unsigned long long temp_bytes, void* out,
-                                   void* stream) {
+                                   void* work, unsigned long long temp_bytes,
+                                   void* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const long long tiles = (n + t - 1) / t;
+  const long long tiles = (n + TILE - 1) / TILE;
   int32_t* w = (int32_t*)((char*)work + ((temp_bytes + 255) & ~255ULL));
   const void* key = idx;
   int mode = idx64 ? IDX64 : IDX32;
@@ -390,5 +369,5 @@ extern "C" int d3h_coo_scatter_add(const void* idx, int idx64,
     perm = sperm;
   }
   return (int)launch_sum(key, mode, perm, (const float*)vals, n, c, out_rows,
-                         t, (float*)out, w, (float*)(w + up4(2 * tiles)), s);
+                         (float*)out, w, (float*)(w + up4(2 * tiles)), s);
 }

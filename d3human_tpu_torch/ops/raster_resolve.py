@@ -18,7 +18,7 @@ slots' face ids ``[NT, M]`` int32 instead of one copied row per slot.
 On a CUDA tensor both launch the hand-written kernel
 ``csrc/raster_resolve.cu`` (which replaces the Pallas kernel
 ``d3human_tpu/ops/pallas_raster.py:64 _resolve_body``; the source note there
-says what bounds it and what ``chunk`` and ``pix`` do). On a CPU tensor they
+says what bounds it and what the design does about it). On a CPU tensor they
 run ``resolve_tiles_plain``.
 
 Both evaluate the edge and depth functions with the rounding of the JAX
@@ -44,13 +44,15 @@ MISS_KEY = (1 << 31) - 1
 ROW_W = 16
 BLOCK = 128
 
+# constants of csrc/raster_resolve.cu
 CHUNK = 128     # slots per CTA: a tile's slots are cut over M / CHUNK CTAs
-PIX = 4         # pixels of one column per thread, where it divides th
+PIX = 4         # pixels of one column per thread (2 or 1 where 4 does not
+                # divide th)
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _SIG = {"d3h_resolve_tiles": (
-    _PTR, _PTR, _PTR, _PTR, _INT, _PTR, _INT, _INT, _INT, _INT, _INT, _INT,
-    _INT, _PTR, _PTR)}
+    _PTR, _PTR, _PTR, _PTR, _INT, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR,
+    _PTR)}
 
 
 def pack_face_rows(A: torch.Tensor, C: torch.Tensor, az, bz, cz,
@@ -138,8 +140,8 @@ def resolve_tiles_plain(tile_rows: torch.Tensor, tile: Tuple[int, int],
 
 
 def _resolve(rows: torch.Tensor, faces: Optional[torch.Tensor], NT: int,
-             M: int, tile, ntx: int, floor, counts, global_range,
-             chunk: Optional[int], pix: Optional[int]) -> torch.Tensor:
+             M: int, tile, ntx: int, floor, counts,
+             global_range) -> torch.Tensor:
     """Check, launch and count: ``rows`` [NT, M, 16], or the face table
     read through ``faces`` [NT, M]."""
     th, tw = tile
@@ -149,9 +151,6 @@ def _resolve(rows: torch.Tensor, faces: Optional[torch.Tensor], NT: int,
     if rows.dtype != torch.float32 or th * tw > 1024:
         raise ValueError("resolve_tiles: float32 rows and th*tw <= 1024 "
                          "pixels per tile")
-    if pix is None:
-        pix = next(p for p in (PIX, 2, 1) if th % p == 0)
-    chunk = CHUNK if chunk is None else chunk
     rows = rows.contiguous()
 
     def i32(x, shape, what):
@@ -178,7 +177,7 @@ def _resolve(rows: torch.Tensor, faces: Optional[torch.Tensor], NT: int,
     lib = cuda_lib.load("raster_resolve", _SIG)
     cuda_lib.check(lib.d3h_resolve_tiles(
         rows.data_ptr(), ptr(faces), ptr(floor), ptr(counts), g0,
-        ptr(n_global), NT, M, th, tw, ntx, chunk, pix, out.data_ptr(),
+        ptr(n_global), NT, M, th, tw, ntx, out.data_ptr(),
         cuda_lib.stream_ptr(dev)), "resolve_tiles")
     resolve_tiles.launches += 1
     if floor is not None:
@@ -195,9 +194,8 @@ def _check_slots(M: int, W: int, shape) -> None:
 
 def resolve_tiles(tile_rows: torch.Tensor, tile: Tuple[int, int], ntx: int,
                   floor: Optional[torch.Tensor] = None,
-                  counts: Optional[torch.Tensor] = None, global_range=None,
-                  chunk: Optional[int] = None,
-                  pix: Optional[int] = None) -> torch.Tensor:
+                  counts: Optional[torch.Tensor] = None,
+                  global_range=None) -> torch.Tensor:
     """Packed keys [NT, th*tw] int32 (MISS_KEY = background) from one copied
     row per slot, ``tile_rows`` [NT, M, 16]."""
     NT, M, W = tile_rows.shape
@@ -206,15 +204,14 @@ def resolve_tiles(tile_rows: torch.Tensor, tile: Tuple[int, int], ntx: int,
         return resolve_tiles_plain(tile_rows, tile, ntx, floor, counts,
                                    global_range)
     return _resolve(tile_rows, None, NT, M, tile, ntx, floor, counts,
-                    global_range, chunk, pix)
+                    global_range)
 
 
 def resolve_tiles_indexed(rows: torch.Tensor, all_faces: torch.Tensor,
                           tile: Tuple[int, int], ntx: int,
                           floor: Optional[torch.Tensor] = None,
                           counts: Optional[torch.Tensor] = None,
-                          global_range=None, chunk: Optional[int] = None,
-                          pix: Optional[int] = None) -> torch.Tensor:
+                          global_range=None) -> torch.Tensor:
     """The same keys from the face table ``rows`` [F+1, 16] and the slots'
     face ids ``all_faces`` [NT, M] (F = the zero row): no row is copied."""
     NT, M = all_faces.shape
@@ -223,7 +220,7 @@ def resolve_tiles_indexed(rows: torch.Tensor, all_faces: torch.Tensor,
         return resolve_tiles_plain(rows[all_faces.long()], tile, ntx, floor,
                                    counts, global_range)
     return _resolve(rows, all_faces, NT, M, tile, ntx, floor, counts,
-                    global_range, chunk, pix)
+                    global_range)
 
 
 resolve_tiles.launches = 0          # every launch of the kernel, either form

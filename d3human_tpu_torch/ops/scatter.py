@@ -5,13 +5,12 @@ Counterpart of ``d3human_tpu/ops/scatter.py``. ``coo_scatter_add`` is
 ``[0, out_rows)`` — negatives included — are dropped; ``sorted_idx=True``
 skips the sort for already-ascending indices.
 
-On a CUDA tensor the wrapper does, in one call into ``csrc/scatter.cu``,
-what ``sort_rows`` (one hand-written pass that writes int32 keys and an
-int32 iota, then a stable radix sort over the key bits that can be set) and
-``segmented_sum`` (the hand-written deterministic tiled segmented sum, two
-launches per call, which replaces the Pallas kernel
-``d3human_tpu/ops/scatter.py:41 _scatter_kernel``; the source note there
-says what bounds it) do one after the other. On a CPU tensor it runs
+On a CUDA tensor the wrapper makes one call into ``csrc/scatter.cu``: one
+hand-written pass that writes int32 keys and an int32 iota, a stable radix
+sort over the key bits that can be set, then the hand-written deterministic
+tiled segmented sum (two launches per call), which replaces the Pallas
+kernel ``d3human_tpu/ops/scatter.py:41 _scatter_kernel``; the source note
+there says what bounds it. On a CPU tensor it runs
 ``coo_scatter_add_plain``, which adds the same sorted rows in the same order.
 
 ``gather_rows``, ``segment_add_rows`` and ``scatter_rows_sorted`` are
@@ -30,13 +29,10 @@ from d3human_tpu_torch.ops import cuda_lib
 
 _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIG = {
-    "d3h_scatter_keys": (_PTR, _INT, _LL, _INT, _PTR, _PTR, _PTR),
-    "d3h_sort_pairs": (_PTR, _PTR, _PTR, _PTR, _LL, _INT, _PTR,
-                       ctypes.POINTER(ctypes.c_ulonglong), _PTR),
-    "d3h_segmented_sum": (_PTR, _PTR, _PTR, _LL, _INT, _INT, _INT, _PTR,
-                          _PTR, _PTR, _PTR),
+    "d3h_sort_scratch_bytes": (_LL, _INT,
+                               ctypes.POINTER(ctypes.c_ulonglong)),
     "d3h_coo_scatter_add": (_PTR, _INT, _PTR, _LL, _INT, _INT, _INT, _INT,
-                            _INT, _PTR, ctypes.c_ulonglong, _PTR, _PTR),
+                            _PTR, ctypes.c_ulonglong, _PTR, _PTR),
 }
 # the constants of csrc/scatter.cu
 THREADS = 256   # threads of a CTA
@@ -46,16 +42,16 @@ CHUNK = 16      # entries per thread in the shared-memory levels
 NONE = 2 ** 31 - 1      # key of an entry that carries nothing
 
 
-def _launches(n: int, tile: int = TILE) -> int:
+def _launches(n: int) -> int:
     """Launches of the sum kernels for n sorted rows: the tile kernel, and
     the carry kernel when there is more than one tile."""
-    return 0 if n == 0 else 1 if n <= tile else 2
+    return 0 if n == 0 else 1 if n <= TILE else 2
 
 
 def sort_rows_plain(idx: torch.Tensor, out_rows: int, sorted_idx: bool):
-    """Plain PyTorch version of ``sort_rows``. Out-of-range rows get the
-    sentinel key ``out_rows`` before the sort, so negatives do not land at
-    the front."""
+    """(sorted int32 keys, int32 permutation or None when ``sorted_idx``).
+    Out-of-range rows get the sentinel key ``out_rows`` before the stable
+    sort, so negatives do not land at the front."""
     idx = idx.reshape(-1)
     keys = torch.where((idx >= 0) & (idx < out_rows), idx,
                        out_rows).to(torch.int32)
@@ -69,9 +65,8 @@ def sort_rows_plain(idx: torch.Tensor, out_rows: int, sorted_idx: bool):
 def _sort_scratch_bytes(n: int, bits: int) -> int:
     """Bytes of scratch the radix sort of n pairs wants (a host-side query)."""
     size = ctypes.c_ulonglong(0)
-    cuda_lib.check(cuda_lib.load("scatter", _SIG).d3h_sort_pairs(
-        0, 0, 0, 0, n, bits, 0, ctypes.byref(size), 0),
-        "sort_pairs (size query)")
+    cuda_lib.check(cuda_lib.load("scatter", _SIG).d3h_sort_scratch_bytes(
+        n, bits, ctypes.byref(size)), "sort_scratch_bytes")
     return max(size.value, 1)
 
 
@@ -91,38 +86,6 @@ def _int_idx(idx: torch.Tensor) -> torch.Tensor:
     if idx.dtype not in (torch.int32, torch.int64):
         idx = idx.long()
     return idx.contiguous()
-
-
-def sort_rows(idx: torch.Tensor, out_rows: int, sorted_idx: bool = False):
-    """(sorted int32 keys, int32 permutation or None when ``sorted_idx``).
-    On the card the keys and an iota come from one kernel and the stable
-    sort is ``cub::DeviceRadixSort`` over ``out_rows.bit_length()`` bits."""
-    n = idx.numel()
-    if idx.device.type == "cpu" or n == 0:
-        return sort_rows_plain(idx, out_rows, sorted_idx)
-    idx = _int_idx(idx)
-    dev = idx.device
-
-    def empty():
-        return torch.empty((n,), dtype=torch.int32, device=dev)
-
-    lib = cuda_lib.load("scatter", _SIG)
-    stream = cuda_lib.stream_ptr(dev)
-    keys, iota = empty(), None if sorted_idx else empty()
-    cuda_lib.check(lib.d3h_scatter_keys(
-        idx.data_ptr(), int(idx.dtype == torch.int64), n, out_rows,
-        keys.data_ptr(), 0 if iota is None else iota.data_ptr(), stream),
-        "scatter_keys")
-    if sorted_idx:
-        return keys, None
-    bits = _key_bits(out_rows)
-    size = ctypes.c_ulonglong(_sort_scratch_bytes(n, bits))
-    temp = torch.empty((size.value,), dtype=torch.uint8, device=dev)
-    skeys, perm = empty(), empty()
-    cuda_lib.check(lib.d3h_sort_pairs(
-        keys.data_ptr(), skeys.data_ptr(), iota.data_ptr(), perm.data_ptr(),
-        n, bits, temp.data_ptr(), ctypes.byref(size), stream), "sort_pairs")
-    return skeys, perm
 
 
 def _pieces(length: int, block: int, piece: int, npieces: int, device):
@@ -207,17 +170,19 @@ def _segsum_launch(keys, vals, out, tile: int):
 
 
 def segmented_sum_plain(keys: torch.Tensor, perm, vals: torch.Tensor,
-                        out_rows: int, tile: int = TILE) -> torch.Tensor:
-    """Plain PyTorch version of ``segmented_sum``: the kernels' launches and
-    levels with every addition in their order."""
+                        out_rows: int) -> torch.Tensor:
+    """Sorted int32 ``keys`` [N] (a key >= out_rows drops its row), the
+    sort's ``perm`` (None: ``vals`` are in key order), ``vals`` [N, C] ->
+    [out_rows, C] sums of the runs of equal keys: the sum kernels' launches
+    and levels with every addition in their order."""
     v = vals if perm is None else vals[perm.long()]
     out = torch.zeros((out_rows + 1, vals.shape[1]), dtype=vals.dtype,
                       device=vals.device)
     n = keys.shape[0]
     for c0 in range(0, vals.shape[1] if n else 0, COLS):
         ob = out[:, c0:c0 + COLS]
-        ck, cv = _segsum_launch(keys, v[:, c0:c0 + COLS], ob, tile)
-        if n > tile:
+        ck, cv = _segsum_launch(keys, v[:, c0:c0 + COLS], ob, TILE)
+        if n > TILE:
             _segsum_launch(ck, cv, ob, ck.shape[0])
     return out[:out_rows]
 
@@ -229,45 +194,6 @@ def coo_scatter_add_plain(idx: torch.Tensor, vals: torch.Tensor,
     ``segmented_sum_plain``."""
     keys, perm = sort_rows_plain(idx, out_rows, sorted_idx)
     return segmented_sum_plain(keys, perm, vals, out_rows)
-
-
-def segmented_sum(keys: torch.Tensor, perm, vals: torch.Tensor,
-                  out_rows: int, tile: int = TILE) -> torch.Tensor:
-    """Sorted int32 ``keys`` [N] (a key >= out_rows drops its row), the
-    sort's int32 ``perm`` (None: ``vals`` are in key order), ``vals``
-    [N, C] f32 on the card -> [out_rows, C] f32 sums of the runs of equal
-    keys, by the hand-written kernels."""
-    N, C = vals.shape
-    dev = vals.device
-    if dev.type != "cuda" or keys.device != dev or keys.dtype != torch.int32:
-        raise ValueError("segmented_sum: int32 keys and vals on one CUDA "
-                         "device (segmented_sum_plain takes CPU tensors)")
-    if keys.shape != (N,) or (perm is not None and (
-            perm.shape != (N,) or perm.dtype != torch.int32)):
-        raise ValueError(f"segmented_sum: keys and perm must be int32 [N] "
-                         f"for vals [N, C], got {tuple(keys.shape)} for "
-                         f"{tuple(vals.shape)}")
-    if not 1 <= tile <= 2048:
-        raise ValueError("segmented_sum: 1 <= tile <= 2048")
-    vals = _aligned(vals)
-    keys = keys.contiguous()
-    out = torch.empty((out_rows, C), dtype=torch.float32, device=dev)
-    if out_rows == 0 or C == 0:
-        return out
-    tiles = -(-N // tile)
-    ckeys = torch.empty((2 * tiles,), dtype=torch.int32, device=dev)
-    cvals = torch.empty((2 * tiles, C), dtype=torch.float32, device=dev)
-    lib = cuda_lib.load("scatter", _SIG)
-    cuda_lib.check(lib.d3h_segmented_sum(
-        keys.data_ptr(), 0 if perm is None else perm.data_ptr(),
-        vals.data_ptr(), N, C, out_rows, tile, out.data_ptr(),
-        ckeys.data_ptr(), cvals.data_ptr(), cuda_lib.stream_ptr(dev)),
-        "segmented_sum")
-    segmented_sum.launches += _launches(N, tile)
-    return out
-
-
-segmented_sum.launches = 0      # launches made through this function alone
 
 
 def coo_scatter_add(idx: torch.Tensor, vals: torch.Tensor, out_rows: int,
@@ -296,8 +222,8 @@ def coo_scatter_add(idx: torch.Tensor, vals: torch.Tensor, out_rows: int,
         return out
     idx = _int_idx(idx)
     vals = _aligned(vals)
-    # what sort_rows and segmented_sum do, in one call into the library
-    # with one scratch tensor (its layout: d3h_coo_scatter_add)
+    # one scratch tensor for the sort and the carries (its layout:
+    # d3h_coo_scatter_add)
     bits = _key_bits(out_rows)
     scratch = 0 if sorted_idx or N == 0 else _sort_scratch_bytes(N, bits)
     tiles = -(-N // TILE)
@@ -306,7 +232,7 @@ def coo_scatter_add(idx: torch.Tensor, vals: torch.Tensor, out_rows: int,
                        dtype=torch.uint8, device=dev)
     cuda_lib.check(cuda_lib.load("scatter", _SIG).d3h_coo_scatter_add(
         idx.data_ptr(), int(idx.dtype == torch.int64), vals.data_ptr(), N, C,
-        out_rows, int(sorted_idx), bits, TILE, work.data_ptr(), scratch,
+        out_rows, int(sorted_idx), bits, work.data_ptr(), scratch,
         out.data_ptr(), cuda_lib.stream_ptr(dev)), "coo_scatter_add")
     coo_scatter_add.launches += _launches(N)
     coo_scatter_add.calls += 1
