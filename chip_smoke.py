@@ -19,26 +19,32 @@ object per line:
                default hash-grid texture, split targets (JAX package:
                bench.py build("full"))
   kernels      each kernel against its plain version on the scene's own
-               inputs: first_k exactly equal; the scatter within rel 1e-5 /
+               inputs: first_k exactly equal at its five shapes, its two
+               launches the only kernels of its calls (no library scan, no
+               copy or cast) and its eager wrapper faster than
+               torch.nonzero + pad; the scatter within rel 1e-5 /
                abs 1e-6 and bitwise equal across two runs; the tile resolve
                (without and with a depth-peel floor; the main path's form,
                rows by face id over the live ranges, and the parity form,
                copied rows over all slots) exactly equal to the plain FULL
                scan. Time of the kernel's wrapper, of the plain version and
                of a library call computing the same function (CUDA events),
-               and the wrapper's device time alone (CUDA-graph replays); the
-               scatter's device time split into key preparation + sort and
-               the sum kernels from the profiler's kernel rows of the
-               wrapper's own calls, beside the plain version's torch.sort;
+               and the wrapper's device time alone (CUDA-graph replays of
+               one call; for first_k also of 20 calls back to back);
+               first_k's count and write launches, and the scatter's key
+               preparation + sort and sum kernels, from the profiler's
+               kernel rows of the wrapper's own calls (the sort beside the
+               plain version's torch.sort);
                the binning with and without the per-slot copy of the rows
   step         warm-up step, then INIT_STEPS timed init training steps
                (CUDA events) with every kernel launch count reset just
                before and read just after; losses finite, n_cross > 0,
-               n_cov > 0, first_k exactly 5 and the resolve 1 per step
+               n_cov > 0, first_k exactly 5 calls (2 launches each) and the
+               resolve 1 launch per step
   profile      one more init step under torch.profiler: device busy time,
                idle share, top operators by device time, the port's kernels
   split_step   the same for SPLIT_STEPS split training steps: both halves
-               non-empty, first_k exactly 8 and the resolve 2 per step
+               non-empty, first_k exactly 8 calls and the resolve 2 per step
   validate     the split stage's validation render of both halves
                (render_stage_mesh(compact=False), layers = VAL_LAYERS):
                per half 2 resolve launches, 1 of them with a floor; layer 1
@@ -226,19 +232,21 @@ def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def graph_ms(fn, reps: int = 20) -> float:
-    """Device time of ``fn``'s launches alone: captured once into a CUDA
-    graph and replayed, so no host time between its launches counts (a
-    wrapper that takes the host longer to call than the card to run reads
-    the host's time under ``cuda_ms``)."""
+def graph_ms(fn, reps: int = 20, calls: int = 1) -> float:
+    """Device time of ``fn``'s launches alone: ``calls`` calls captured once
+    into a CUDA graph and replayed, so no host time between its launches
+    counts (a wrapper that takes the host longer to call than the card to
+    run reads the host's time under ``cuda_ms``); per call. With one call
+    a replay's own start is in the time."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
-    return cuda_ms(graph.replay, reps=reps)
+        for _ in range(calls):
+            fn()
+    return cuda_ms(graph.replay, reps=reps) / calls
 
 
 def parts_ms(fn, parts: dict, reps: int = 5) -> dict:
@@ -266,7 +274,10 @@ def parts_ms(fn, parts: dict, reps: int = 5) -> dict:
     return out
 
 
-# the scatter's kernels by part (names as the profiler prints them)
+# the kernels of first_k and of the scatter by part (names as the profiler
+# prints them)
+FIRST_K_PARTS = {"count_ms": ("first_k_count_kernel",),
+                 "write_ms": ("first_k_write_kernel",)}
 SCATTER_PARTS = {"prep_sort_ms": ("scatter_keys_kernel", "RadixSort"),
                  "sum_ms": ("segsum_tile_kernel", "segsum_carry_kernel",
                             "Memset")}
@@ -347,10 +358,16 @@ def phase_kernels(sc: dict) -> list:
     rows = []
 
     # ---- first_k: exact against the plain version at all five shapes
+    fk = compaction.first_k_indices
     fk_times = []
     for what, mask, k in fk_calls:
         n = mask.numel()
-        got = compaction.first_k_indices(mask, k, n)
+        counts0 = (fk.calls, fk.launches)
+        got = fk(mask, k, n)
+        check((fk.calls - counts0[0], fk.launches - counts0[1])
+              == (1, compaction.LAUNCHES),
+              f"first_k {what}: {fk.launches - counts0[1]} launches counted "
+              f"for one call")
         want = compaction.first_k_plain(mask, k, n)
         check(torch.equal(got, want), f"first_k {what}: kernel != plain")
 
@@ -361,23 +378,37 @@ def phase_kernels(sc: dict) -> list:
                                              device=mask.device)])
 
         check(torch.equal(library(), want), f"first_k {what}: yardstick")
+        # only the count and write launches run in the wrapper's calls
+        parts = parts_ms(lambda: fk(mask, k, n), FIRST_K_PARTS)
+        check(parts["count_ms"] > 0 and parts["write_ms"] > 0
+              and parts["other_ms"] == 0,
+              f"first_k {what}: the profiler's kernel rows {parts}")
+        b, by = bound_ms(n * 1 + k * 4)
         fk_times.append(dict(
-            call=what, n=n, k=k, set=int(mask.sum()),
-            ms=cuda_ms(lambda: compaction.first_k_indices(mask, k, n)),
-            device_ms=graph_ms(lambda: compaction.first_k_indices(mask, k,
-                                                                  n)),
+            call=what, n=n, k=k, set=int(mask.sum()), bound_ms=b,
+            bound_by=by, launches_per_call=compaction.LAUNCHES,
+            ms=cuda_ms(lambda: fk(mask, k, n)),
+            device_ms=graph_ms(lambda: fk(mask, k, n)),
+            # 20 calls a replay: one call's device time after another's
+            device_ms_back_to_back=graph_ms(lambda: fk(mask, k, n),
+                                            calls=20), **parts,
             plain_ms=cuda_ms(lambda: compaction.first_k_plain(mask, k, n)),
             library_ms=cuda_ms(library)))
-    emit("kernel_first_k", exact=True, calls=fk_times)
+        check(fk_times[-1]["ms"] < fk_times[-1]["library_ms"],
+              f"first_k {what}: slower than torch.nonzero + pad")
+    emit("kernel_first_k", exact=True, tile_bytes=compaction.TILE_BYTES,
+         calls=fk_times)
     big = fk_times[0]
-    b, by = bound_ms(big["n"] * 1 + big["k"] * 4)
     rows.append(dict(name="first_k_indices", route="cuda",
                      source="d3human_tpu_torch/csrc/first_k.cu",
                      replaces="d3human_tpu/ops/compaction.py:37",
                      shape=f"n={big['n']} k={big['k']}", max_abs_err=0.0,
-                     ms=big["ms"], plain_ms=big["plain_ms"], bound_ms=b,
-                     bound_by=by, library_ms=big["library_ms"],
-                     device_ms=big["device_ms"]))
+                     ms=big["ms"], plain_ms=big["plain_ms"],
+                     bound_ms=big["bound_ms"], bound_by=big["bound_by"],
+                     library_ms=big["library_ms"],
+                     device_ms=big["device_ms"],
+                     device_ms_back_to_back=big["device_ms_back_to_back"],
+                     count_ms=big["count_ms"], write_ms=big["write_ms"]))
 
     # ---- scatter: vertex-gather backward, face-normal corner backward,
     # and the sorted image scatter, at their main-path shapes. Rows that
@@ -582,6 +613,7 @@ def reset_counts() -> None:
     from d3human_tpu_torch.ops import compaction, raster_resolve, scatter
 
     compaction.first_k_indices.launches = 0
+    compaction.first_k_indices.calls = 0
     scatter.coo_scatter_add.launches = 0
     scatter.coo_scatter_add.calls = 0
     raster_resolve.resolve_tiles.launches = 0
@@ -592,7 +624,8 @@ def read_counts() -> dict:
     """Kernel launches since ``reset_counts``, by the kernel table's names:
     the resolve's launches with a floor count as ``resolve_tiles_peel``.
     ``calls`` are calls of the wrappers; they differ from the launches for
-    the scatter only (two sum kernels per call, one for a single tile)."""
+    first_k (a count and a write launch per call) and the scatter (two sum
+    kernels per call, one for a single tile)."""
     from d3human_tpu_torch.ops import compaction, raster_resolve, scatter
 
     rt = raster_resolve.resolve_tiles
@@ -600,14 +633,16 @@ def read_counts() -> dict:
          "coo_scatter_add": scatter.coo_scatter_add.launches,
          "resolve_tiles": rt.launches - rt.floor_launches,
          "resolve_tiles_peel": rt.floor_launches}
-    n["calls"] = dict(n, coo_scatter_add=scatter.coo_scatter_add.calls)
+    n["calls"] = dict(n, first_k_indices=compaction.first_k_indices.calls,
+                      coo_scatter_add=scatter.coo_scatter_add.calls)
     return n
 
 
-# launches per step the stage's code path must make (first_k: crossing
-# edges and valid tets once, then per render covered pixels + AA pairs x, y)
-STEP_LAUNCHES = {"init": {"first_k_indices": 5, "resolve_tiles": 1},
-                 "split": {"first_k_indices": 8, "resolve_tiles": 2}}
+# calls per step the stage's code path must make (first_k: crossing edges
+# and valid tets once, then per render covered pixels + AA pairs x, y; the
+# resolve: one launch a call)
+STEP_CALLS = {"init": {"first_k_indices": 5, "resolve_tiles": 1},
+              "split": {"first_k_indices": 8, "resolve_tiles": 2}}
 
 
 def stage_step_fn(sc: dict, stage: str):
@@ -628,6 +663,8 @@ def check_step_metrics(stage: str, m: dict, where: str) -> None:
 def phase_step(sc: dict, stage: str, steps: int) -> dict:
     """Warm-up step, then ``steps`` timed training steps of ``stage``."""
     import torch
+
+    from d3human_tpu_torch.ops import compaction
 
     phase = "step" if stage == "init" else "split_step"
     state_key = "state" if stage == "init" else "split_state"
@@ -659,10 +696,14 @@ def phase_step(sc: dict, stage: str, steps: int) -> dict:
           f"{phase}: the scatter kernel never launched")
     check(launches["resolve_tiles_peel"] == 0,
           f"{phase}: a training step launched the resolve with a floor")
-    for k, per_step in STEP_LAUNCHES[stage].items():
-        check(launches[k] == per_step * steps,
-              f"{phase}: {k} launched {launches[k]} times in {steps} steps, "
+    for k, per_step in STEP_CALLS[stage].items():
+        check(calls[k] == per_step * steps,
+              f"{phase}: {k} called {calls[k]} times in {steps} steps, "
               f"expected {per_step * steps}")
+    check(launches["first_k_indices"]
+          == compaction.LAUNCHES * calls["first_k_indices"]
+          and launches["resolve_tiles"] == calls["resolve_tiles"],
+          f"{phase}: launches {launches} for calls {calls}")
     out = dict(steps=steps, step_ms=step_ms,
                mean_ms=sum(step_ms) / steps, warmup_s=warm_s,
                launches_per_step={k: n / steps for k, n in launches.items()},
@@ -737,6 +778,8 @@ def phase_validate(sc: dict) -> dict:
     just before and read just after."""
     import torch
 
+    from d3human_tpu_torch.ops import compaction
+
     gen = torch.Generator(device="cuda").manual_seed(2)
     halves, total, total_calls = {}, {}, {}
     for name, sign in (("cloth", 1.0), ("body", -1.0)):
@@ -756,9 +799,10 @@ def phase_validate(sc: dict) -> dict:
         check(n["resolve_tiles"] == 1
               and n["resolve_tiles_peel"] == VAL_LAYERS - 1,
               f"validate {name}: resolve launches {n}")
-        check(n["first_k_indices"] > 0 and n["coo_scatter_add"] > 0
-              and calls["coo_scatter_add"] > 0,
-              f"validate {name}: launches {n}")
+        check(calls["first_k_indices"] > 0 and n["first_k_indices"]
+              == compaction.LAUNCHES * calls["first_k_indices"]
+              and n["coo_scatter_add"] > 0 and calls["coo_scatter_add"] > 0,
+              f"validate {name}: launches {n}, calls {calls}")
         halves[name] = dict(info, ms=start.elapsed_time(end), launches=n,
                             calls=calls)
         for k, v in n.items():
@@ -805,7 +849,8 @@ def phase_profile(what: str, run) -> None:
                     for e in sorted(by_shape, key=lambda e:
                                     -e.device_time_total)[:12]],
          port_kernels=[row(e) for e in avg if any(k in e.key for k in (
-             "first_k_kernel", "scatter_keys_kernel", "DeviceRadixSort",
+             "first_k_count_kernel", "first_k_write_kernel",
+             "scatter_keys_kernel", "DeviceRadixSort",
              "segsum_tile_kernel", "segsum_carry_kernel",
              "resolve_tiles_kernel", "fill_keys_kernel"))])
 
@@ -866,8 +911,9 @@ def main() -> int:
     for r in rows:
         # launches: the kernel's launches on the driven paths (INIT_STEPS
         # init steps, SPLIT_STEPS split steps, one validation render of
-        # each half); the scatter counts each launch of its two sum
-        # kernels, and its calls are the calls of the wrapper
+        # each half); first_k counts its count and write launches, the
+        # scatter each launch of its two sum kernels, and their calls are
+        # the calls of the wrapper
         for what in ("launches", "calls"):
             r[what + "_by_path"] = {k: v[what][r["name"]]
                                     for k, v in paths.items()}

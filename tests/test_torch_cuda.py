@@ -40,16 +40,91 @@ def _binned_rows(seed, F, res, tile, mfpt=256, bin_expand=8,
                      bin_expand=bin_expand, max_global=max_global)
 
 
+TB = compaction.TILE_BYTES   # mask bytes per CTA of the first_k kernel
+
+
+def _first_k_exact(mask, k, fill):
+    """One call of the wrapper: exactly the plain version, one call and
+    ``compaction.LAUNCHES`` launches counted."""
+    fk = compaction.first_k_indices
+    before = (fk.calls, fk.launches)
+    got = fk(mask, k, fill)
+    assert (fk.calls - before[0], fk.launches - before[1]) == (
+        1, compaction.LAUNCHES if k and mask.numel() else 0)
+    assert got.dtype == torch.int32 and got.shape == (k,)
+    assert torch.equal(got, compaction.first_k_plain(mask, k, fill)), (
+        mask.numel(), k)
+    return got
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,k,p", [(4_800_000, 262_144, 0.05),
-                                   (1_166_400, 291_600, 0.1),
-                                   (1000, 64, 0.0)])
+@pytest.mark.parametrize("n,k,p", [
+    (4_800_000, 262_144, 0.05),
+    (1_166_400, 291_600, 0.1),
+    (1000, 64, 0.0),                # all false
+    (TB - 1, 2000, 0.3),            # around one and three tiles
+    (TB, 2000, 0.3),
+    (TB + 1, 2000, 0.3),
+    (3 * TB - 1, 9000, 0.3),
+    (3 * TB + 1, 9000, 0.3),
+    (3 * TB + 1, 9000, 1.0),        # all true
+    (13, 4, 0.5),                   # shorter than one 16-byte piece
+    (2 ** 24 + 4099, 300, 1e-5)])   # beyond the JAX path's 2^24
 def test_cuda_first_k_equals_plain(cuda_device, n, k, p):
-    g = torch.Generator(device=cuda_device).manual_seed(0)
+    """At each size ``k`` and, from the mask's count, k below it, equal to
+    it, above it, 0 and above n: exactly the plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(n)
     m = torch.rand(n, generator=g, device=cuda_device) < p
-    torch.testing.assert_close(compaction.first_k_indices(m, k, n),
-                               compaction.first_k_plain(m, k, n),
-                               rtol=0, atol=0)
+    total = int(m.sum())
+    for kk in sorted({k, max(total - 1, 1), total, total + 1, 0, n + 9}):
+        _first_k_exact(m, kk, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [13, 3 * TB + 1])
+@pytest.mark.parametrize("offset", [0, 1, 3, 15])
+def test_cuda_first_k_views_and_byte_masks(cuda_device, n, offset):
+    """A mask that starts ``offset`` bytes past a 16-byte line (a view into
+    a larger tensor), as bool and as uint8 with values above 1."""
+    g = torch.Generator(device=cuda_device).manual_seed(offset)
+    vals = torch.randint(0, 4, (n + offset,), generator=g, device=cuda_device,
+                         dtype=torch.uint8)
+    vals[torch.rand(n + offset, generator=g, device=cuda_device) < 0.6] = 0
+    for mask in (vals[offset:], (vals != 0)[offset:]):
+        assert mask.data_ptr() % 16 == offset
+        total = int((mask != 0).sum())
+        for k in sorted({max(total // 2, 1), total, n + 9}):
+            _first_k_exact(mask, k, -1)
+
+
+@pytest.mark.cuda
+def test_cuda_first_k_no_state_between_calls(cuda_device):
+    """Two calls back to back on one stream, then one call captured in a
+    CUDA graph and replayed three times with a new mask copied in before
+    each replay: every result equals the plain version of its own mask, so
+    no count of one call reaches another."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    n, k = 3 * TB + 5, 4000
+    masks = [torch.rand(n, generator=g, device=cuda_device) < p
+             for p in (0.3, 0.05, 0.0, 0.6, 0.1)]
+    a = compaction.first_k_indices(masks[0], k, n)
+    b = compaction.first_k_indices(masks[1], k, n)
+    assert torch.equal(a, compaction.first_k_plain(masks[0], k, n))
+    assert torch.equal(b, compaction.first_k_plain(masks[1], k, n))
+    static = masks[0].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        compaction.first_k_indices(static, k, n)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = compaction.first_k_indices(static, k, n)
+    for mask in masks[2:]:
+        static.copy_(mask)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, compaction.first_k_plain(mask, k, n))
 
 
 @pytest.mark.cuda

@@ -18,12 +18,15 @@ from d3human_tpu.ops.compaction import first_k_indices as jax_first_k
 from d3human_tpu.ops.pallas_raster import resolve_tiles_pallas
 from d3human_tpu.ops.scatter import gather_rows as jax_gather_rows
 from d3human_tpu.ops.scatter import segment_add_rows as jax_segment_add
-from d3human_tpu_torch.ops import compaction, raster_resolve, scatter
+from d3human_tpu_torch.ops import compaction, cuda_lib, raster_resolve, scatter
 
 torch.set_num_threads(1)
 
 
 # ------------------------------------------------------------- first_k
+
+TB = compaction.TILE_BYTES   # mask bytes per CTA of the kernel
+
 
 @pytest.mark.parametrize("n,k,p", [
     (1000, 64, 0.05),
@@ -32,6 +35,15 @@ torch.set_num_threads(1)
     (5000, 5000, 1.0),          # every bit set, k == n
     (9000, 100, 0.0),           # all false -> all fill
     (3000, 4000, 0.2),          # k > n
+    # around one and three tiles of the kernel
+    (TB - 1, 2000, 0.3),        # k < set
+    (TB, TB, 1.0),              # all true, k == set == n
+    (TB + 1, 6000, 0.3),        # set < k < n
+    (3 * TB - 1, 3 * TB + 7, 0.5),   # k > n
+    (3 * TB + 1, 4096, 0.02),   # set < k
+    (3 * TB + 1, 0, 0.3),       # k == 0
+    (13, 4, 0.5),               # shorter than one 16-byte piece
+    (13, 20, 0.5),
 ])
 def test_first_k_matches_nonzero_and_jax(n, k, p):
     rng = np.random.default_rng(n * 7 + k)
@@ -41,9 +53,26 @@ def test_first_k_matches_nonzero_and_jax(n, k, p):
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(
         got, np.asarray(jax_first_k(jnp.asarray(m), k, n, use_pallas=False)))
-    if n > 2 * 4096:
+    if n > 2 * 4096 and k > 0:
         np.testing.assert_array_equal(got, np.asarray(_first_k_pallas(
             jnp.asarray(m), k, n, interpret=True)))
+
+
+def test_first_k_cpu_path_never_loads_a_kernel(monkeypatch):
+    """A CPU tensor takes the plain version and never builds or loads the
+    CUDA library, whatever its dtype; nothing is counted."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("cuda_lib.load on the CPU path")
+
+    monkeypatch.setattr(cuda_lib, "load", refuse)
+    before = (compaction.first_k_indices.calls,
+              compaction.first_k_indices.launches)
+    m = torch.as_tensor(np.random.default_rng(3).random(TB + 1) < 0.4)
+    want = torch.nonzero(m).reshape(-1)[:700].int()
+    for mask in (m, m.to(torch.uint8) * 3, m.int()):
+        assert torch.equal(compaction.first_k_indices(mask, 700, -1), want)
+    assert (compaction.first_k_indices.calls,
+            compaction.first_k_indices.launches) == before
 
 
 def test_first_k_beyond_2_24():
