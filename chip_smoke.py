@@ -13,11 +13,20 @@ object per line:
                against the same tick on the CPU (plain versions)
   small_split  the same for the split tick (both halves, shaded render,
                texture), same parameters and injected random draws
+  small_seq    the same for the seq tick on a tiny template (the body
+               subdivided once)
   scene        the full-width bench scene: 1080^2 pixels, 128^3 lattice
                cropped to the template box + 0.1, 2^18 / 196,608
                capacities, capsule-seeded SDF, mSDF cut at mid height,
                default hash-grid texture, split targets (JAX package:
                bench.py build("full"))
+  seq_scene    the seq bench's merged template built from the port alone
+               (the body midpoint-subdivided 5 times, cluster-decimated to
+               at most 415,000 faces, faces labelled by height): vertex,
+               face, cloth/body and adjacent-pair counts, build seconds;
+               the seq config is the JAX package's bench.py
+               build_seq("full"): default field, texture, render (1080^2,
+               max_covered_frac 0.5) and loss configs, raster_opts None
   kernels      each kernel against its plain version on the scene's own
                inputs: first_k exactly equal at its five shapes, its two
                launches the only kernels of its calls (no library scan, no
@@ -35,7 +44,11 @@ object per line:
                preparation + sort and sum kernels, from the profiler's
                kernel rows of the wrapper's own calls (the sort beside the
                plain version's torch.sort);
-               the binning with and without the per-slot copy of the rows
+               the binning with and without the per-slot copy of the rows;
+               then the same checks at the seq step's shapes (first_k on
+               its covered-pixel mask, the scatter at the Laplacian's and
+               the face-normal backward's shapes, the resolve on the seq
+               template's binning), reported under "seq" in each row
   step         warm-up step, then INIT_STEPS timed init training steps
                (CUDA events) with every kernel launch count reset just
                before and read just after; losses finite, n_cross > 0,
@@ -51,6 +64,12 @@ object per line:
                covers fewer pixels than layer 0 and lies behind it
   profile      one more split step, then one more validation render of
                the cloth half, under torch.profiler
+  seq_step     the same for SEQ_STEPS seq training steps: first_k exactly
+               3 calls, the resolve 1 per step, n_cov > 0, the offsets'
+               loss > 0
+  profile      one more seq step under torch.profiler
+  seq_knn      the seq step's two nearest-neighbour searches alone (the
+               collision's and the skinning-weight transfer's), timed
 
 Then the kernel table, the nvidia-smi line, and the result line
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
@@ -75,9 +94,13 @@ H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12     # FP32 outside the tensor cores
 INIT_STEPS = 2                 # timed init steps after the warm-up step
 SPLIT_STEPS = 4                # timed split steps after the warm-up step
+SEQ_STEPS = 4                  # timed seq steps after the warm-up step
 SEED_STEPS = 400               # Adam steps fitting the SDF to the capsule
 VAL_LAYERS = 2                 # depth-peeled layers of the validation render
 EXACT = ("n_cross", "n_valid_tets", "n_big_faces", "n_max_tile")
+# the training state of each stage in the scene dict, and its step's phase
+STATE_KEY = {"init": "state", "split": "split_state", "seq": "seq_state"}
+STEP_PHASE = {"init": "step", "split": "split_step", "seq": "seq_step"}
 
 
 def emit(phase: str, **kw) -> None:
@@ -98,12 +121,15 @@ SCALES = {
     # the JAX package's bench.py build("full") with
     # configs/f3c_synth_full20.json's capacities, crop and optimizer
     "full": dict(res=(1080, 1080), grid_res=128, mv=2 ** 18, mt=196608,
-                 n_eik=50000, cov=0.25, crop=448, raster_opts=None),
+                 n_eik=50000, cov=0.25, crop=448, raster_opts=None,
+                 # bench.py build_seq("full")
+                 seq=dict(n_subdiv=5, target_faces=415000, cov=0.5)),
     # a CPU-sized rehearsal of the same paths
     "tiny": dict(res=(32, 32), grid_res=8, mv=2048, mt=2048, n_eik=256,
                  cov=0.9, crop=24, raster_opts=dict(
                      tile=(8, 16), max_faces_per_tile=128, bin_expand=8,
-                     max_global=128)),
+                     max_global=128),
+                 seq=dict(n_subdiv=1, target_faces=None, cov=0.9)),
 }
 
 
@@ -146,7 +172,8 @@ def build_scene(scale: str, device: str, seed_steps: int):
                          y_offset=0.0, scale=1.0, crop_box=crop,
                          device=device)
     model = GeometryModel(cfg, grid, scene.deformer, scene.canon)
-    gparams = model.init_params(torch.Generator().manual_seed(0))
+    gparams = model.init_params(torch.Generator().manual_seed(0),
+                                n_images=2)
     ploss = float("nan")
     if seed_steps:
         gparams, ploss = model.pretrain_sdf(gparams, capsule_sdf(grid.verts),
@@ -160,6 +187,7 @@ def build_scene(scale: str, device: str, seed_steps: int):
               "light": create_trainable_env(gen, cfg.render.probe_res,
                                             device=device)}
     return dict(cfg=cfg, model=model, tex=tex, perceptual=perceptual,
+                scene=scene,
                 perc_params=perceptual.init(device), params=params,
                 target=disc_target(cfg.render.train_res, scene.mvp,
                                    scene.campos, device),
@@ -168,6 +196,37 @@ def build_scene(scale: str, device: str, seed_steps: int):
                 raster_opts=s["raster_opts"], pretrain_loss=ploss,
                 grid_dims=grid.dims, n_verts=grid.n_verts,
                 n_tets=grid.n_tets, n_edges=grid.n_edges)
+
+
+def add_seq(sc: dict, scale: str) -> dict:
+    """The seq stage on the scene: its merged template (built on the host
+    from the port alone), its config and its train state, which shares the
+    scene's parameter tree. Returns the template's counts."""
+    import numpy as np
+    import torch
+
+    from d3human_tpu_torch.config import Config, RenderConfig
+    from d3human_tpu_torch.data.synthetic import seq_bench_template
+    from d3human_tpu_torch.train.step import init_state
+
+    s = SCALES[scale]["seq"]
+    dev = sc["model"].grid.verts.device
+    t0 = time.perf_counter()
+    template = seq_bench_template(sc["scene"], n_subdiv=s["n_subdiv"],
+                                  target_faces=s["target_faces"], device=dev)
+    build_s = time.perf_counter() - t0
+    cfg = Config(render=RenderConfig(train_res=sc["cfg"].render.train_res,
+                                     max_covered_frac=s["cov"]))
+    sc.update(seq_template=template, seq_cfg=cfg,
+              seq_state=init_state("seq", sc["params"], cfg))
+    lab = template.face_labels.cpu().numpy()
+    return dict(build_seconds=build_s, n_verts=int(template.v.shape[0]),
+                n_faces=int(template.f.shape[0]),
+                cloth_faces=int(np.sum(lab == 1)),
+                body_faces=int(np.sum(lab == 0)),
+                cloth_verts=int(template.cloth_vidx.shape[0]),
+                body_verts=int(template.body_vidx.shape[0]),
+                adjacent_pairs=int(template.connected_faces.shape[0]))
 
 
 def tick_draws(cfg, stage: str, seed: int):
@@ -194,6 +253,8 @@ def tick_draws(cfg, stage: str, seed: int):
 
     if stage == "init":
         return one()
+    if stage == "seq":
+        return {"render": one()["render"]}
     return {"cloth": one(), "body": one()}
 
 
@@ -289,47 +350,295 @@ def bound_ms(n_bytes: float, n_ops: float = 0.0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_small(seed_steps: int) -> None:
-    """The whole init tick and the whole split tick, kernels on the card
-    vs plain versions on the CPU, on one tiny scene with identical
-    parameters and random draws."""
-    from d3human_tpu_torch.train.step import stage_tick
+def stage_cfg(sc: dict, stage: str):
+    """(config, raster options) of ``stage`` on the scene."""
+    return sc["seq_cfg" if stage == "seq" else "cfg"], sc["raster_opts"]
 
+
+SMALL_PHASE = {"init": "small", "split": "small_split", "seq": "small_seq"}
+
+
+def small_scenes(seed_steps: int):
+    """The tiny scene with its seq template on the CPU and on the card,
+    holding the same parameters."""
     cpu = build_scene("tiny", "cpu", seed_steps)
     gpu = build_scene("tiny", "cuda", 0)
     gpu["params"] = tree_to(cpu["params"], "cuda")
-    for stage, phase in (("init", "small"), ("split", "small_split")):
-        draws = tick_draws(cpu["cfg"], stage, seed=1)
-        out = {}
-        for name, sc in (("cpu", cpu), ("cuda", gpu)):
-            out[name] = scalars(stage_tick(
-                stage, sc["model"], sc["tex"], sc["perceptual"],
-                sc["perc_params"], sc["params"], sc["target"], 7, sc["cfg"],
-                sc["raster_opts"], draws=draws))
-        check(set(out["cpu"]) == set(out["cuda"]), f"{phase}: keys differ")
-        worst = 0.0
-        for k, want in out["cpu"].items():
-            got = out["cuda"][k]
-            if k.endswith(EXACT):
-                check(got == want, f"{phase}: {k} {got} != {want}")
-            else:
-                err = abs(got - want) / max(abs(want), 1e-3)
-                worst = max(worst, err)
-                check(err <= 1e-3, f"{phase}: {k} {got} vs {want}")
-        for k in (("n_cross",) if stage == "init"
-                  else ("cloth_n_cross", "body_n_cross")):
-            check(out["cpu"][k] > 0, f"{phase}: empty mesh ({k})")
-        emit(phase, ok=True, tolerance="counters exact, rel 1e-3",
-             worst_rel_err=worst, cuda=out["cuda"])
+    for sc in (cpu, gpu):
+        add_seq(sc, "tiny")
+    return cpu, gpu
+
+
+def compare_small_tick(cpu: dict, gpu: dict, stage: str) -> None:
+    """One tick of ``stage``, kernels on the card vs plain versions on the
+    CPU, with the same random draws: counters exact, rel 1e-3."""
+    from d3human_tpu_torch.train.step import stage_tick
+
+    phase = SMALL_PHASE[stage]
+    draws = tick_draws(stage_cfg(cpu, stage)[0], stage, seed=1)
+    out = {}
+    for name, sc in (("cpu", cpu), ("cuda", gpu)):
+        cfg, raster_opts = stage_cfg(sc, stage)
+        out[name] = scalars(stage_tick(
+            stage, sc["model"], sc["tex"], sc["perceptual"],
+            sc["perc_params"], sc["params"], sc["target"], 7, cfg,
+            raster_opts, draws=draws, template=sc.get("seq_template")))
+    check(set(out["cpu"]) == set(out["cuda"]), f"{phase}: keys differ")
+    worst = 0.0
+    for k, want in out["cpu"].items():
+        got = out["cuda"][k]
+        if k.endswith(EXACT):
+            check(got == want, f"{phase}: {k} {got} != {want}")
+        else:
+            err = abs(got - want) / max(abs(want), 1e-3)
+            worst = max(worst, err)
+            check(err <= 1e-3, f"{phase}: {k} {got} vs {want}")
+    for k in {"init": ("n_cross",), "seq": ("cap_cov",),
+              "split": ("cloth_n_cross", "body_n_cross")}[stage]:
+        check(out["cpu"][k] > 0, f"{phase}: empty mesh ({k})")
+    emit(phase, ok=True, tolerance="counters exact, rel 1e-3",
+         worst_rel_err=worst, cuda=out["cuda"])
+
+
+def phase_small(seed_steps: int) -> None:
+    """The whole init, split and seq ticks, kernels on the card vs plain
+    versions on the CPU, on one tiny scene with identical parameters and
+    random draws."""
+    cpu, gpu = small_scenes(seed_steps)
+    for stage in SMALL_PHASE:
+        compare_small_tick(cpu, gpu, stage)
+
+
+def check_first_k(what: str, mask, k: int, faster: bool = True) -> dict:
+    """first_k at one shape: exactly equal to the plain version and to
+    ``torch.nonzero`` + pad, its two launches the only kernels of its calls,
+    and with ``faster`` faster than the library; its times and bound."""
+    import torch
+
+    from d3human_tpu_torch.ops import compaction
+
+    fk = compaction.first_k_indices
+    n = mask.numel()
+    counts0 = (fk.calls, fk.launches)
+    got = fk(mask, k, n)
+    check((fk.calls - counts0[0], fk.launches - counts0[1])
+          == (1, compaction.LAUNCHES),
+          f"first_k {what}: {fk.launches - counts0[1]} launches counted "
+          f"for one call")
+    want = compaction.first_k_plain(mask, k, n)
+    check(torch.equal(got, want), f"first_k {what}: kernel != plain")
+
+    def library():
+        nz = torch.nonzero(mask.reshape(-1)).reshape(-1)[:k].int()
+        return torch.cat([nz, torch.full((k - nz.numel(),), n,
+                                         dtype=torch.int32,
+                                         device=mask.device)])
+
+    check(torch.equal(library(), want), f"first_k {what}: yardstick")
+    # only the count and write launches run in the wrapper's calls
+    parts = parts_ms(lambda: fk(mask, k, n), FIRST_K_PARTS)
+    check(parts["count_ms"] > 0 and parts["write_ms"] > 0
+          and parts["other_ms"] == 0,
+          f"first_k {what}: the profiler's kernel rows {parts}")
+    b, by = bound_ms(n * 1 + k * 4)
+    out = dict(
+        call=what, n=n, k=k, set=int(mask.sum()), bound_ms=b, bound_by=by,
+        launches_per_call=compaction.LAUNCHES, max_abs_err=0.0,
+        ms=cuda_ms(lambda: fk(mask, k, n)),
+        device_ms=graph_ms(lambda: fk(mask, k, n)),
+        # 20 calls a replay: one call's device time after another's
+        device_ms_back_to_back=graph_ms(lambda: fk(mask, k, n), calls=20),
+        **parts,
+        plain_ms=cuda_ms(lambda: compaction.first_k_plain(mask, k, n)),
+        library_ms=cuda_ms(library))
+    check(not faster or out["ms"] < out["library_ms"],
+          f"first_k {what}: slower than torch.nonzero + pad")
+    return out
+
+
+def check_scatter(what: str, idx, live, C: int, rows_out: int, srt: bool,
+                  gen, faster: bool = True) -> dict:
+    """The scatter at one shape on random rows (zero where ``live`` is
+    false): deterministic, within rel 1e-5 / abs 1e-6 of the plain version
+    and 1e-4 of ``index_add_``, two launches a call, and with ``faster``
+    faster than the library; its times, parts and bound."""
+    import torch
+
+    from d3human_tpu_torch.ops import scatter
+
+    dev = idx.device
+    N = idx.numel()
+    vals = torch.randn((N, C), generator=gen, device=dev) * live[:, None]
+    calls0 = scatter.coo_scatter_add.calls
+    launches0 = scatter.coo_scatter_add.launches
+    got = scatter.coo_scatter_add(idx, vals, rows_out, sorted_idx=srt)
+    per_call = scatter.coo_scatter_add.launches - launches0
+    check(scatter.coo_scatter_add.calls - calls0 == 1
+          and per_call == scatter._launches(N) == (2 if N > scatter.TILE
+                                                   else 1),
+          f"scatter {what}: {per_call} launches counted for one call")
+    again = scatter.coo_scatter_add(idx, vals, rows_out, sorted_idx=srt)
+    want = scatter.coo_scatter_add_plain(idx, vals, rows_out, srt)
+    check(torch.equal(got, again), f"scatter {what}: not deterministic")
+    # the plain version repeats the kernels' order of additions, so the
+    # two should agree bit for bit (reported); what is required is the
+    # tolerance of float32 sums taken in another order
+    err = (got - want).abs()
+    check(bool((err <= 1e-6 + 1e-5 * want.abs()).all()),
+          f"scatter {what}: max err {float(err.max())}")
+    keep = (idx >= 0) & (idx < rows_out)
+    didx = torch.where(keep, idx, rows_out).long()
+
+    def library():
+        return torch.zeros((rows_out + 1, C), device=dev).index_add_(
+            0, didx, vals)[:rows_out]
+
+    ref = library()
+    err_lib = (got - ref).abs()
+    check(bool((err_lib <= 1e-4 + 1e-4 * ref.abs()).all()),
+          f"scatter {what}: against index_add_ {float(err_lib.max())}")
+    # the parts, on the wrapper's own calls; a sorted call has no key
+    # preparation and no sort
+    parts = parts_ms(lambda: scatter.coo_scatter_add(
+        idx, vals, rows_out, sorted_idx=srt), SCATTER_PARTS)
+    check(parts["sum_ms"] > 0 and (parts["prep_sort_ms"] > 0) != srt,
+          f"scatter {what}: the profiler's kernel rows {parts}")
+    b, by = bound_ms(N * 4 * (1 + C) + rows_out * 4 * C)
+    out = dict(
+        call=what, N=N, C=C, out_rows=rows_out, sorted=srt,
+        bound_ms=b, bound_by=by, launches_per_call=per_call,
+        max_abs_err=float(err.max()), bitwise=torch.equal(got, want),
+        ms=cuda_ms(lambda: scatter.coo_scatter_add(idx, vals, rows_out,
+                                                   sorted_idx=srt)),
+        # device time alone (CUDA graph replays)
+        device_ms=graph_ms(lambda: scatter.coo_scatter_add(
+            idx, vals, rows_out, sorted_idx=srt)),
+        prep_sort_ms=parts["prep_sort_ms"], sum_ms=parts["sum_ms"],
+        other_ms=parts["other_ms"],
+        # yardstick for the sort part: the plain version's where, int32
+        # keys, torch.sort and int64 permutation cast to int32
+        prep_sort_plain_ms=graph_ms(lambda: scatter.sort_rows_plain(
+            idx, rows_out, srt)),
+        library_device_ms=graph_ms(library),
+        plain_ms=cuda_ms(lambda: scatter.coo_scatter_add_plain(
+            idx, vals, rows_out, srt), reps=2, warm=1),
+        library_ms=cuda_ms(library))
+    check(not faster or out["ms"] < out["library_ms"],
+          f"scatter {what}: slower than index_add_")
+    return out
+
+
+def binning_stats(binned, v_clip, faces, fvalid, res) -> dict:
+    """The binning's time with and without the per-slot copy of the rows,
+    and how its tiles fill."""
+    from d3human_tpu_torch.ops import raster_resolve as rr
+    from d3human_tpu_torch.ops.rasterizer import bin_faces
+
+    return dict(
+        bin_faces_ms=cuda_ms(lambda: bin_faces(v_clip, faces, fvalid, res)),
+        copy_rows_per_slot_ms=graph_ms(lambda: binned.tile_rows),
+        copied_bytes=binned.tile_rows.numel() * 4,
+        longest_list=int((binned.starts[1:] - binned.starts[:-1]).max()),
+        n_global=int(binned.global_range[1]),
+        tiles_with_faces=int((binned.counts > 0).sum()),
+        tiles_over_128_slots=int((binned.counts > 128).sum()),
+        tiles_at_the_cap=int((binned.counts == binned.global_range[0]).sum()),
+        cta_with_work=int((-(-binned.counts // rr.CHUNK)).sum()))
+
+
+def check_resolve(binned, n_faces: int, floor=None):
+    """The tile resolve on one binning, both forms of the launch (the main
+    path's, rows by face id over the live ranges, and the parity form,
+    copied rows over all slots), each exactly equal to the plain FULL scan
+    of the copied rows, so a wrong live count cannot hide. Returns (the
+    main form's keys, its report with times and bound)."""
+    import torch
+
+    from d3human_tpu_torch.ops import raster_resolve as rr
+
+    tile = (8, 128)
+    _, ntx, NT = binned.grid
+    tile_rows = binned.tile_rows                    # [NT, M, 16] copied rows
+    M = tile_rows.shape[1]
+    Ppix = tile[0] * tile[1]
+    ranges = dict(counts=binned.counts, global_range=binned.global_range)
+    live_slots = int((binned.all_faces < n_faces).sum())
+    want = rr.resolve_tiles_plain(tile_rows, tile, ntx, floor=floor)
+    plain_ms = cuda_ms(lambda: rr.resolve_tiles_plain(
+        tile_rows, tile, ntx, floor=floor), reps=2, warm=1)
+    plain_ranges = rr.resolve_tiles_plain(tile_rows, tile, ntx,
+                                          floor=floor, **ranges)
+    check(torch.equal(plain_ranges, want),
+          "resolve: the plain version with ranges != its full scan")
+    forms = {
+        "rows by face id, live ranges": lambda: rr.resolve_tiles_indexed(
+            binned.rows, binned.all_faces, tile, ntx, floor=floor,
+            **ranges),
+        "copied rows, all slots": lambda: rr.resolve_tiles(
+            tile_rows, tile, ntx, floor=floor),
+    }
+    main = forms["rows by face id, live ranges"]
+    times = {}
+    for name, fn in forms.items():
+        got = fn()
+        check(torch.equal(got, want), f"resolve ({name}): kernel != "
+              f"plain full scan ({int((got != want).sum())} keys differ)")
+        times[name] = graph_ms(fn)
+    got = main()
+    check(bool((got != rr.MISS_KEY).any()), "resolve: no pixel covered")
+    # a live slot's 16-float row is read, a dead one needs only its flag;
+    # the floor read and one more compare per live slot and pixel
+    peel = floor is not None
+    b, by = bound_ms(live_slots * 64 + (NT * M - live_slots) * 4
+                     + (2 if peel else 1) * NT * Ppix * 4,
+                     (19.0 if peel else 18.0) * live_slots * Ppix)
+    return got, dict(NT=NT, M=M, live_slots=live_slots,
+                     hit_pixels=int((got != rr.MISS_KEY).sum()),
+                     chunk=rr.CHUNK, pix=rr.PIX, ms=cuda_ms(main),
+                     device_ms=times["rows by face id, live ranges"],
+                     plain_ms=plain_ms, forms_device_ms=times, bound_ms=b,
+                     bound_by=by, max_abs_err=0.0)
+
+
+def seq_kernel_inputs(sc: dict) -> dict:
+    """The seq step's kernel inputs on the scene's template: the posed
+    template, its binning and rasterization at the training resolution."""
+    import torch
+
+    from d3human_tpu_torch.ops.rasterizer import (
+        bin_faces, rasterize, xfm_points,
+    )
+
+    cfg, t = sc["seq_cfg"], sc["seq_template"]
+    res = tuple(cfg.render.train_res)
+    p = sc["params"]
+    with torch.no_grad():
+        posed, _ = sc["model"].seq_deformed(p["geometry"], t, p["pose"], 0)
+        v_clip = xfm_points(posed, sc["target"]["mvp"])
+        fvalid = torch.ones((t.f.shape[0],), dtype=torch.bool,
+                            device=posed.device)
+        rast = rasterize(v_clip, t.f, fvalid, res)
+        binned = bin_faces(v_clip, t.f, fvalid, res)
+    return dict(posed=posed, v_clip=v_clip, fvalid=fvalid, rast=rast,
+                binned=binned, res=res,
+                P=int(res[0] * res[1] * cfg.render.max_covered_frac))
+
+
+def kernel_summary(r: dict) -> dict:
+    """A kernel line's numbers at one shape."""
+    return {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "device_ms", "max_abs_err")
+            if k in r}
 
 
 def phase_kernels(sc: dict) -> list:
-    """Each kernel vs its plain version on the full scene's inputs."""
+    """Each kernel vs its plain version on the full scene's inputs, at the
+    init and split steps' shapes, then at the seq step's."""
     import torch
 
-    from d3human_tpu_torch.ops import compaction, marching_tets as mt
+    from d3human_tpu_torch.ops import compaction, scatter
+    from d3human_tpu_torch.ops import marching_tets as mt
     from d3human_tpu_torch.ops import raster_resolve as rr
-    from d3human_tpu_torch.ops import scatter
     from d3human_tpu_torch.ops.rasterizer import (
         aa_pair_candidates, bin_faces, compact_cover, rasterize, xfm_points,
     )
@@ -347,57 +656,26 @@ def phase_kernels(sc: dict) -> list:
         rast = rasterize(v_clip, faces, fvalid, res)
         binned = bin_faces(v_clip, faces, fvalid, res)
         pix_idx, pix_valid, fid = compact_cover(rast, P)
+    seq = seq_kernel_inputs(sc)
     aa_k = 16 * max(res)
-    fk_calls = [
-        ("crossing edges", mt._structured_crossing(occ3), cfg.geometry.max_verts),
-        ("valid tets", mt._structured_valid_tets(occ3), cfg.geometry.max_tets),
-        ("covered pixels", (rast.tri_id > 0).reshape(-1), P),
-        ("aa pairs x", aa_pair_candidates(rast, 1, 0.01).reshape(-1), aa_k),
-        ("aa pairs y", aa_pair_candidates(rast, 0, 0.01).reshape(-1), aa_k),
-    ]
     rows = []
 
     # ---- first_k: exact against the plain version at all five shapes
-    fk = compaction.first_k_indices
-    fk_times = []
-    for what, mask, k in fk_calls:
-        n = mask.numel()
-        counts0 = (fk.calls, fk.launches)
-        got = fk(mask, k, n)
-        check((fk.calls - counts0[0], fk.launches - counts0[1])
-              == (1, compaction.LAUNCHES),
-              f"first_k {what}: {fk.launches - counts0[1]} launches counted "
-              f"for one call")
-        want = compaction.first_k_plain(mask, k, n)
-        check(torch.equal(got, want), f"first_k {what}: kernel != plain")
-
-        def library(mask=mask, k=k, n=n):
-            nz = torch.nonzero(mask.reshape(-1)).reshape(-1)[:k].int()
-            return torch.cat([nz, torch.full((k - nz.numel(),), n,
-                                             dtype=torch.int32,
-                                             device=mask.device)])
-
-        check(torch.equal(library(), want), f"first_k {what}: yardstick")
-        # only the count and write launches run in the wrapper's calls
-        parts = parts_ms(lambda: fk(mask, k, n), FIRST_K_PARTS)
-        check(parts["count_ms"] > 0 and parts["write_ms"] > 0
-              and parts["other_ms"] == 0,
-              f"first_k {what}: the profiler's kernel rows {parts}")
-        b, by = bound_ms(n * 1 + k * 4)
-        fk_times.append(dict(
-            call=what, n=n, k=k, set=int(mask.sum()), bound_ms=b,
-            bound_by=by, launches_per_call=compaction.LAUNCHES,
-            ms=cuda_ms(lambda: fk(mask, k, n)),
-            device_ms=graph_ms(lambda: fk(mask, k, n)),
-            # 20 calls a replay: one call's device time after another's
-            device_ms_back_to_back=graph_ms(lambda: fk(mask, k, n),
-                                            calls=20), **parts,
-            plain_ms=cuda_ms(lambda: compaction.first_k_plain(mask, k, n)),
-            library_ms=cuda_ms(library)))
-        check(fk_times[-1]["ms"] < fk_times[-1]["library_ms"],
-              f"first_k {what}: slower than torch.nonzero + pad")
+    fk_times = [check_first_k(what, mask, k) for what, mask, k in [
+        ("crossing edges", mt._structured_crossing(occ3),
+         cfg.geometry.max_verts),
+        ("valid tets", mt._structured_valid_tets(occ3),
+         cfg.geometry.max_tets),
+        ("covered pixels", (rast.tri_id > 0).reshape(-1), P),
+        ("aa pairs x", aa_pair_candidates(rast, 1, 0.01).reshape(-1), aa_k),
+        ("aa pairs y", aa_pair_candidates(rast, 0, 0.01).reshape(-1), aa_k),
+    ]]
+    # the seq shapes are timed beside the library, not held to it
+    fk_seq = check_first_k("seq covered pixels",
+                           (seq["rast"].tri_id > 0).reshape(-1), seq["P"],
+                           faster=False)
     emit("kernel_first_k", exact=True, tile_bytes=compaction.TILE_BYTES,
-         calls=fk_times)
+         calls=fk_times + [fk_seq])
     big = fk_times[0]
     rows.append(dict(name="first_k_indices", route="cuda",
                      source="d3human_tpu_torch/csrc/first_k.cu",
@@ -408,12 +686,15 @@ def phase_kernels(sc: dict) -> list:
                      library_ms=big["library_ms"],
                      device_ms=big["device_ms"],
                      device_ms_back_to_back=big["device_ms_back_to_back"],
-                     count_ms=big["count_ms"], write_ms=big["write_ms"]))
+                     count_ms=big["count_ms"], write_ms=big["write_ms"],
+                     seq=dict(kernel_summary(fk_seq), shape=(
+                         f"n={fk_seq['n']} k={fk_seq['k']}"))))
 
     # ---- scatter: vertex-gather backward, face-normal corner backward,
-    # and the sorted image scatter, at their main-path shapes. Rows that
-    # carry a zero cotangent on the step (empty pixel slots, dead faces)
-    # are zero here too.
+    # and the sorted image scatter, at their main-path shapes; then the seq
+    # step's Laplacian (6F rows x 4) and face-normal backward (3F x 3).
+    # Rows that carry a zero cotangent on the step (empty pixel slots, dead
+    # faces) are zero here too.
     dev = meshes.verts_posed.device
     gen = torch.Generator(device=dev).manual_seed(0)
     V = meshes.verts_posed.shape[0]
@@ -426,7 +707,7 @@ def phase_kernels(sc: dict) -> list:
     hash_idx = enc._corner_index(
         lvl, torch.floor(u * enc.resolutions[lvl]).to(torch.int32))
     corners = faces[fid.long()].reshape(-1)
-    sc_calls = [
+    sc_times = [check_scatter(*c, gen) for c in [
         ("vertex gather bwd", corners, pix_valid.repeat_interleave(3), 8, V,
          False),
         ("face-normal gather bwd", faces.reshape(-1),
@@ -436,69 +717,19 @@ def phase_kernels(sc: dict) -> list:
          pix_valid.repeat_interleave(3), 14, V, False),
         ("hash level bwd (corner-packed rows)", hash_idx, pix_valid,
          8 * enc.n_features, enc.level_sizes[lvl], False),
-    ]
-    sc_times = []
-    for what, idx, live, C, rows_out, srt in sc_calls:
-        N = idx.numel()
-        vals = torch.randn((N, C), generator=gen, device=dev) * live[:, None]
-        calls0 = scatter.coo_scatter_add.calls
-        launches0 = scatter.coo_scatter_add.launches
-        got = scatter.coo_scatter_add(idx, vals, rows_out, sorted_idx=srt)
-        per_call = scatter.coo_scatter_add.launches - launches0
-        check(scatter.coo_scatter_add.calls - calls0 == 1
-              and per_call == scatter._launches(N) == (2 if N > scatter.TILE
-                                                       else 1),
-              f"scatter {what}: {per_call} launches counted for one call")
-        again = scatter.coo_scatter_add(idx, vals, rows_out, sorted_idx=srt)
-        want = scatter.coo_scatter_add_plain(idx, vals, rows_out, srt)
-        check(torch.equal(got, again), f"scatter {what}: not deterministic")
-        # the plain version repeats the kernels' order of additions, so the
-        # two should agree bit for bit (reported); what is required is the
-        # tolerance of float32 sums taken in another order
-        err = (got - want).abs()
-        check(bool((err <= 1e-6 + 1e-5 * want.abs()).all()),
-              f"scatter {what}: max err {float(err.max())}")
-        keep = (idx >= 0) & (idx < rows_out)
-        didx = torch.where(keep, idx, rows_out).long()
-
-        def library(vals=vals, didx=didx, C=C, rows_out=rows_out):
-            return torch.zeros((rows_out + 1, C), device=dev).index_add_(
-                0, didx, vals)[:rows_out]
-
-        ref = library()
-        err_lib = (got - ref).abs()
-        check(bool((err_lib <= 1e-4 + 1e-4 * ref.abs()).all()),
-              f"scatter {what}: against index_add_ {float(err_lib.max())}")
-        # the parts, on the wrapper's own calls; a sorted call has no
-        # key preparation and no sort
-        parts = parts_ms(lambda: scatter.coo_scatter_add(
-            idx, vals, rows_out, sorted_idx=srt), SCATTER_PARTS)
-        check(parts["sum_ms"] > 0 and (parts["prep_sort_ms"] > 0) != srt,
-              f"scatter {what}: the profiler's kernel rows {parts}")
-        b, by = bound_ms(N * 4 * (1 + C) + rows_out * 4 * C)
-        sc_times.append(dict(
-            call=what, N=N, C=C, out_rows=rows_out, sorted=srt,
-            bound_ms=b, bound_by=by, launches_per_call=per_call,
-            max_abs_err=float(err.max()), bitwise=torch.equal(got, want),
-            ms=cuda_ms(lambda: scatter.coo_scatter_add(idx, vals, rows_out,
-                                                       sorted_idx=srt)),
-            # device time alone (CUDA graph replays)
-            device_ms=graph_ms(lambda: scatter.coo_scatter_add(
-                idx, vals, rows_out, sorted_idx=srt)),
-            prep_sort_ms=parts["prep_sort_ms"], sum_ms=parts["sum_ms"],
-            other_ms=parts["other_ms"],
-            # yardstick for the sort part: the plain version's where, int32
-            # keys, torch.sort and int64 permutation cast to int32
-            prep_sort_plain_ms=graph_ms(lambda: scatter.sort_rows_plain(
-                idx, rows_out, srt)),
-            library_device_ms=graph_ms(library),
-            plain_ms=cuda_ms(lambda: scatter.coo_scatter_add_plain(
-                idx, vals, rows_out, srt), reps=2, warm=1),
-            library_ms=cuda_ms(library)))
-        check(sc_times[-1]["ms"] < sc_times[-1]["library_ms"],
-              f"scatter {what}: slower than index_add_")
+    ]]
+    tf = sc["seq_template"].f
+    Vs = sc["seq_template"].v.shape[0]
+    lap_idx = tf[:, [0, 1, 1, 2, 2, 0]].T.reshape(-1)
+    sc_seq = [check_scatter(*c, gen, faster=False) for c in [
+        ("seq laplacian", lap_idx, torch.ones_like(lap_idx, dtype=torch.bool),
+         4, Vs, False),
+        ("seq face-normal gather bwd", tf.reshape(-1),
+         torch.ones((tf.numel(),), dtype=torch.bool, device=dev), 3, Vs,
+         False),
+    ]]
     emit("kernel_scatter", deterministic=True, tolerance="rel 1e-5 abs 1e-6",
-         tile=scatter.TILE, calls=sc_times)
+         tile=scatter.TILE, calls=sc_times + sc_seq)
     big = sc_times[0]
     rows.append(dict(name="coo_scatter_add", route="cuda",
                      source="d3human_tpu_torch/csrc/scatter.cu",
@@ -509,103 +740,47 @@ def phase_kernels(sc: dict) -> list:
                      bound_ms=big["bound_ms"], bound_by=big["bound_by"],
                      library_ms=big["library_ms"],
                      device_ms=big["device_ms"],
-                     prep_sort_ms=big["prep_sort_ms"], sum_ms=big["sum_ms"]))
+                     prep_sort_ms=big["prep_sort_ms"], sum_ms=big["sum_ms"],
+                     seq={c["call"]: dict(kernel_summary(c), shape=(
+                         f"N={c['N']} C={c['C']} out={c['out_rows']}"))
+                          for c in sc_seq}))
 
-    # ---- tile resolve on the scene's own binning: exact keys. Every form
-    # is held to the plain FULL scan of the copied rows, so a wrong live
-    # count cannot hide.
-    tile = (8, 128)
-    nty, ntx, NT = binned.grid
-    tile_rows = binned.tile_rows                    # [NT, M, 16] copied rows
-    M = tile_rows.shape[1]
-    Ppix = tile[0] * tile[1]
-    ranges = dict(counts=binned.counts, global_range=binned.global_range)
-    live_slots = int((binned.all_faces < faces.shape[0]).sum())
-    bin_ms = dict(
-        bin_faces_ms=cuda_ms(lambda: bin_faces(v_clip, faces, fvalid, res)),
-        copy_rows_per_slot_ms=graph_ms(lambda: binned.tile_rows),
-        copied_bytes=tile_rows.numel() * 4,
-        longest_list=int((binned.starts[1:] - binned.starts[:-1]).max()),
-        n_global=int(binned.global_range[1]),
-        tiles_with_faces=int((binned.counts > 0).sum()),
-        tiles_over_128_slots=int((binned.counts > 128).sum()),
-        tiles_at_the_cap=int((binned.counts == binned.global_range[0]).sum()),
-        cta_with_work=int((-(-binned.counts // rr.CHUNK)).sum()))
-    emit("bin_faces", **bin_ms)
-
-    def resolve_forms(floor):
-        """Both forms of the launch -> (keys of the main path's form, the
-        plain version's time, the main form's wrapper time, device times by
-        form from CUDA graph replays); each checked against the plain full
-        scan."""
-        want = rr.resolve_tiles_plain(tile_rows, tile, ntx, floor=floor)
-        plain_ms = cuda_ms(lambda: rr.resolve_tiles_plain(
-            tile_rows, tile, ntx, floor=floor), reps=2, warm=1)
-        plain_ranges = rr.resolve_tiles_plain(tile_rows, tile, ntx,
-                                              floor=floor, **ranges)
-        check(torch.equal(plain_ranges, want),
-              "resolve: the plain version with ranges != its full scan")
-        forms = {
-            "rows by face id, live ranges": lambda: rr.resolve_tiles_indexed(
-                binned.rows, binned.all_faces, tile, ntx, floor=floor,
-                **ranges),
-            "copied rows, all slots": lambda: rr.resolve_tiles(
-                tile_rows, tile, ntx, floor=floor),
-        }
-        main = forms["rows by face id, live ranges"]
-        times = {}
-        for name, fn in forms.items():
-            got = fn()
-            check(torch.equal(got, want), f"resolve ({name}): kernel != "
-                  f"plain full scan ({int((got != want).sum())} keys differ)")
-            times[name] = graph_ms(fn)
-        return main(), plain_ms, cuda_ms(main), times
-
-    got, plain_ms, ms, times = resolve_forms(None)
-    check(bool((got != rr.MISS_KEY).any()), "resolve: no pixel covered")
-    # a live slot's 16-float row is read; a dead one needs only its flag
-    b, by = bound_ms(live_slots * 64 + (NT * M - live_slots) * 4
-                     + NT * Ppix * 4, 18.0 * live_slots * Ppix)
-    rs = dict(NT=NT, M=M, live_slots=live_slots,
-              hit_pixels=int((got != rr.MISS_KEY).sum()),
-              chunk=rr.CHUNK, pix=rr.PIX, ms=ms,
-              device_ms=times["rows by face id, live ranges"],
-              plain_ms=plain_ms, forms_device_ms=times)
-    emit("kernel_resolve", exact=True, **rs)
+    # ---- tile resolve on the scene's own binning: exact keys
+    emit("bin_faces", **binning_stats(binned, v_clip, faces, fvalid, res))
+    got, rs = check_resolve(binned, faces.shape[0])
+    # the seq template's binning (392k faces at the seq bench's size)
+    sb = seq["binned"]
+    seq_bin = binning_stats(sb, seq["v_clip"], sc["seq_template"].f,
+                            seq["fvalid"], seq["res"])
+    _, rs_seq = check_resolve(sb, sc["seq_template"].f.shape[0])
+    emit("kernel_resolve", exact=True, **rs,
+         seq=dict(rs_seq, binning=seq_bin))
     rows.append(dict(name="resolve_tiles", route="cuda",
                      source="d3human_tpu_torch/csrc/raster_resolve.cu",
                      replaces="d3human_tpu/ops/pallas_raster.py:52",
-                     shape=f"NT={NT} M={M} P={Ppix}", max_abs_err=0.0,
-                     ms=rs["ms"], plain_ms=rs["plain_ms"], bound_ms=b,
-                     bound_by=by, library_ms=None,
-                     device_ms=rs["device_ms"]))
+                     shape=f"NT={rs['NT']} M={rs['M']} P={8 * 128}",
+                     **kernel_summary(rs), library_ms=None,
+                     seq=dict(kernel_summary(rs_seq), library_ms=None,
+                              shape=(f"NT={rs_seq['NT']} M={rs_seq['M']} "
+                                     f"live={rs_seq['live_slots']}"))))
 
     # ---- the depth-peel step on the same rows: layer 0's keys as the
     # floor; exact keys, every hit strictly behind its floor, and a pixel
     # that missed in layer 0 misses again
     floor = got
-    got_p, plain_ms, ms, times = resolve_forms(floor)
+    got_p, ps = check_resolve(binned, faces.shape[0], floor=floor)
     hit_p = got_p != rr.MISS_KEY
     check(bool(hit_p.any()), "resolve with floor: no second layer")
     check(bool((got_p[hit_p] > floor[hit_p]).all()),
           "resolve with floor: a key at or below its floor")
     check(not bool(hit_p[floor == rr.MISS_KEY].any()),
           "resolve with floor: a hit behind a miss")
-    # the floor-free bytes and operations, plus the floor read and one
-    # more compare per live slot and pixel
-    b, by = bound_ms(live_slots * 64 + (NT * M - live_slots) * 4
-                     + 2 * NT * Ppix * 4, 19.0 * live_slots * Ppix)
-    ps = dict(NT=NT, M=M, live_slots=live_slots, hit_pixels=int(hit_p.sum()),
-              ms=ms, device_ms=times["rows by face id, live ranges"],
-              plain_ms=plain_ms, forms_device_ms=times)
     emit("kernel_resolve_peel", exact=True, **ps)
     rows.append(dict(name="resolve_tiles_peel", route="cuda",
                      source="d3human_tpu_torch/csrc/raster_resolve.cu",
                      replaces="d3human_tpu/ops/pallas_raster.py:58",
-                     shape=f"NT={NT} M={M} P={Ppix} + floor",
-                     max_abs_err=0.0, ms=ps["ms"], plain_ms=ps["plain_ms"],
-                     bound_ms=b, bound_by=by, library_ms=None,
-                     device_ms=ps["device_ms"]))
+                     shape=f"NT={ps['NT']} M={ps['M']} P={8 * 128} + floor",
+                     **kernel_summary(ps), library_ms=None))
     return rows
 
 
@@ -642,19 +817,26 @@ def read_counts() -> dict:
 # and valid tets once, then per render covered pixels + AA pairs x, y; the
 # resolve: one launch a call)
 STEP_CALLS = {"init": {"first_k_indices": 5, "resolve_tiles": 1},
-              "split": {"first_k_indices": 8, "resolve_tiles": 2}}
+              "split": {"first_k_indices": 8, "resolve_tiles": 2},
+              "seq": {"first_k_indices": 3, "resolve_tiles": 1}}
 
 
 def stage_step_fn(sc: dict, stage: str):
     from d3human_tpu_torch.train.step import make_train_step
 
+    cfg, raster_opts = stage_cfg(sc, stage)
     return make_train_step(stage, sc["model"], sc["tex"], sc["perceptual"],
-                           sc["perc_params"], sc["cfg"], sc["raster_opts"])
+                           sc["perc_params"], cfg, raster_opts,
+                           template=sc.get("seq_template"))
 
 
 def check_step_metrics(stage: str, m: dict, where: str) -> None:
     for k, v in m.items():
         check(math.isfinite(v), f"{where}: {k} = {v}")
+    if stage == "seq":
+        check(m["cap_cov"] > 0, f"{where}: n_cov == 0")
+        check(m["delta_loss"] > 0, f"{where}: no nonrigid offset")
+        return
     for half in (("",) if stage == "init" else ("cloth_", "body_")):
         check(m[half + "n_cross"] > 0, f"{where}: {half}n_cross == 0")
         check(m[half + "cap_cov"] > 0, f"{where}: {half}n_cov == 0")
@@ -666,8 +848,7 @@ def phase_step(sc: dict, stage: str, steps: int) -> dict:
 
     from d3human_tpu_torch.ops import compaction
 
-    phase = "step" if stage == "init" else "split_step"
-    state_key = "state" if stage == "init" else "split_state"
+    phase, state_key = STEP_PHASE[stage], STATE_KEY[stage]
     step_fn = stage_step_fn(sc, stage)
     gen = torch.Generator(device="cuda").manual_seed(0)
     state = sc[state_key]
@@ -855,10 +1036,39 @@ def phase_profile(what: str, run) -> None:
              "resolve_tiles_kernel", "fill_keys_kernel"))])
 
 
+def phase_seq_knn(sc: dict) -> None:
+    """The seq step's two K=1 searches alone at its shapes (CUDA events):
+    the collision's cloth vertices against the body face centres, and the
+    skinning-weight transfer of the template against the canonical body;
+    beside the bound of their distance arithmetic (8 f32 operations a
+    pair)."""
+    import torch
+
+    from d3human_tpu_torch.ops.knn import knn1
+
+    t, p = sc["seq_template"], sc["params"]
+    with torch.no_grad():
+        posed, _ = sc["model"].seq_deformed(p["geometry"], t, p["pose"], 0)
+        body = posed[t.body_vidx.long()]
+        tri = body[t.body_f.long().clamp(0, body.shape[0] - 1)]
+        centres = (tri[:, 0] + tri[:, 1] + tri[:, 2]) * (1.0 / 3.0)
+        cloth = posed[t.cloth_vidx.long()]
+        canon = sc["model"].canon.vs_template[0]
+    out = {}
+    for what, q, r in (("collision", cloth, centres),
+                       ("skin weights", posed, canon)):
+        b, by = bound_ms(4 * 3 * (q.shape[0] + r.shape[0]) + 8 * q.shape[0],
+                         8.0 * q.shape[0] * r.shape[0])
+        out[what] = dict(queries=q.shape[0], refs=r.shape[0],
+                         ms=cuda_ms(lambda q=q, r=r: knn1(q, r), reps=3,
+                                    warm=1), bound_ms=b, bound_by=by)
+    emit("seq_knn", **out)
+
+
 def one_more_step(sc: dict, stage: str) -> None:
     import torch
 
-    key = "state" if stage == "init" else "split_state"
+    key = STATE_KEY[stage]
     sc[key], _ = stage_step_fn(sc, stage)(
         sc[key], sc["target"], torch.Generator(device="cuda").manual_seed(1))
 
@@ -895,6 +1105,7 @@ def main() -> int:
          texture_resolutions=sc["tex"].encoder.resolutions,
          texture_dense=sc["tex"].encoder.dense,
          pretrain_loss=sc["pretrain_loss"])
+    emit("seq_scene", **add_seq(sc, "full"))
 
     rows = phase_kernels(sc)
     if "--kernels-only" in sys.argv[1:]:
@@ -908,12 +1119,15 @@ def main() -> int:
     phase_profile("split step", lambda: one_more_step(sc, "split"))
     phase_profile("validation render, cloth half",
                   lambda: validation_render(sc, 1.0))
+    paths["seq_step"] = phase_step(sc, "seq", SEQ_STEPS)
+    phase_profile("seq step", lambda: one_more_step(sc, "seq"))
+    phase_seq_knn(sc)
     for r in rows:
         # launches: the kernel's launches on the driven paths (INIT_STEPS
         # init steps, SPLIT_STEPS split steps, one validation render of
-        # each half); first_k counts its count and write launches, the
-        # scatter each launch of its two sum kernels, and their calls are
-        # the calls of the wrapper
+        # each half, SEQ_STEPS seq steps); first_k counts its count and
+        # write launches, the scatter each launch of its two sum kernels,
+        # and their calls are the calls of the wrapper
         for what in ("launches", "calls"):
             r[what + "_by_path"] = {k: v[what][r["name"]]
                                     for k, v in paths.items()}
@@ -922,6 +1136,7 @@ def main() -> int:
     emit("paths", init_step={"steps": INIT_STEPS},
          split_step={"steps": SPLIT_STEPS},
          validate={"renders": 2, "layers": VAL_LAYERS},
+         seq_step={"steps": SEQ_STEPS},
          launches={k: v["launches"] for k, v in paths.items()},
          calls={k: v["calls"] for k, v in paths.items()})
     print(json.dumps({"kernels": rows}), flush=True)

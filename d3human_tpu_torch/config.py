@@ -1,5 +1,5 @@
-"""Frozen configuration tree: the fields the init- and split-stage training
-steps and the validation render read.
+"""Frozen configuration tree: the fields the init-, split- and seq-stage
+training steps and the validation render read.
 
 A copy of ``d3human_tpu/config.py`` cut to these slices; field names and
 defaults are the JAX package's, so a JAX ``Config`` converts field by field
@@ -16,9 +16,12 @@ from typing import Optional, Tuple
 @dataclass(frozen=True)
 class FieldConfig:
     n_freq: int = 6
+    n_freq_deform: int = 8       # the nonrigid DeformMLP's encoding
     d_hidden: int = 256
     n_hidden: int = 6
     skip_in: Tuple[int, ...] = (3,)
+    pose_code_dim: int = 136     # fix_code's width
+    cond_dim: int = 64           # per-frame latents cond / render_cond
 
 
 @dataclass(frozen=True)
@@ -91,6 +94,7 @@ class LossConfig:
     use_eikonal: bool = True
     use_mesh_msdf_reg: bool = True
     perceptual_crop: int = 448
+    collision_push_eps: float = 0.005
 
 
 @dataclass(frozen=True)
@@ -108,6 +112,13 @@ class OptimConfig:
 class StageConfig:
     init_epoch: int = 2001
     split_epoch: int = 1001
+    seq_epoch: int = 50001
+    seq_max_frames: int = 20
+    seq_iters_first: int = 1000
+    seq_iters_rest: int = 300
+    # skinning weights transferred once at the rest template instead of at
+    # the deformed positions every iteration (off: the reference's way)
+    seq_static_skin_weights: bool = False
 
 
 @dataclass(frozen=True)

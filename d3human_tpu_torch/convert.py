@@ -9,7 +9,9 @@ the same tree of tensors. Every part keeps its layout: MLP weights are
 A tree without material or light converts to one without.
 ``texture_from_jax_config`` builds the port's ``MLPTexture3D`` from the JAX
 package's texture config and material range; ``perceptual_from_jax`` turns
-ConvPerceptual's HWIO filters into PyTorch's OIHW.
+ConvPerceptual's HWIO filters into PyTorch's OIHW; ``template_from_jax``
+turns a seq template with the JAX ``SeqTemplate``'s fields (numpy arrays)
+into the port's.
 """
 
 from __future__ import annotations
@@ -51,3 +53,15 @@ def perceptual_from_jax(perc_params: dict, device="cuda") -> dict:
     """{"ws": [HWIO [3, 3, cin, cout]]} -> {"ws": [OIHW [cout, cin, 3, 3]]}."""
     return {"ws": [torch.as_tensor(np.array(w)).permute(3, 2, 0, 1)
                    .contiguous().to(device) for w in perc_params["ws"]]}
+
+
+def template_from_jax(jtemplate, device="cuda"):
+    """The port's ``SeqTemplate`` from an object with the JAX
+    ``SeqTemplate``'s fields as numpy arrays (duck-typed; ``w_pts`` may be
+    None); dtypes are kept."""
+    from d3human_tpu_torch.models.geometry import SeqTemplate
+
+    return SeqTemplate(**{
+        f.name: None if getattr(jtemplate, f.name) is None
+        else torch.as_tensor(np.array(getattr(jtemplate, f.name))).to(device)
+        for f in dataclasses.fields(SeqTemplate)})

@@ -1,23 +1,29 @@
 """Synthetic scene for tests and the on-card run (counterpart of the pose
 and camera part of ``d3human_tpu/data/synthetic.py:make_scene``): the
 capsule body model, its canonical state, per-frame poses on a turntable,
-and a look-at camera. Ground-truth rendering is not ported; ``disc_target``
-gives the analytic mask/normal target of the JAX package's bench, with
-its cloth/body split for the split stage."""
+a look-at camera and the height-band garment labels of the template's
+faces. Ground-truth rendering is not ported; ``disc_target`` gives the
+analytic mask/normal target of the JAX package's bench, with its cloth/body
+split for the split and seq stages; ``seq_bench_template`` builds the
+bench's seq template (``bench.py:build_seq``)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from d3human_tpu_torch.models.geometry import SeqTemplate
 from d3human_tpu_torch.models.smplx.deformer import (
     CanonicalState, SMPLXDeformer,
 )
 from d3human_tpu_torch.models.smplx.model import (
     SMPLXModel, synthetic_body_model,
+)
+from d3human_tpu_torch.pipeline.template import (
+    cluster_decimate, midpoint_subdivide_in_bbox, seq_template,
 )
 from d3human_tpu_torch.render.camera import look_at, perspective
 
@@ -31,6 +37,14 @@ class SyntheticScene:
     mvp: torch.Tensor        # [4, 4]
     campos: torch.Tensor     # [3]
     n_frames: int
+    garment_faces: np.ndarray   # [F] int64, 0 body / 1 cloth
+
+
+def garment_labels(v: np.ndarray, f: np.ndarray) -> np.ndarray:
+    """1 for the faces whose centroid lies in the torso band
+    -0.1 < y < 0.35, else 0."""
+    cy = np.asarray(v)[np.asarray(f)][:, :, 1].mean(axis=1)
+    return ((cy > -0.1) & (cy < 0.35)).astype(np.int64)
 
 
 def make_scene(resolution=(128, 128), n_frames: int = 4, seed: int = 0,
@@ -64,7 +78,29 @@ def make_scene(resolution=(128, 128), n_frames: int = 4, seed: int = 0,
     return SyntheticScene(
         model=model, deformer=deformer, canon=canon, pose_params=pose_params,
         mvp=t(proj @ mv), campos=t(np.linalg.inv(mv)[:3, 3]),
-        n_frames=n_frames)
+        n_frames=n_frames,
+        garment_faces=garment_labels(model.v_template.cpu().numpy(),
+                                     model.faces))
+
+
+def seq_bench_template(scene: SyntheticScene, n_subdiv: int = 5,
+                       target_faces: Optional[int] = 415000,
+                       device="cuda") -> SeqTemplate:
+    """The JAX bench's seq template (``bench.py:build_seq("full")``): the
+    scene's body subdivided ``n_subdiv`` times at edge midpoints,
+    cluster-decimated to at most ``target_faces`` (None: not decimated),
+    faces labelled by height, a vertex cloth where any cloth face uses it."""
+    v = scene.model.v_template.cpu().numpy().astype(np.float32)
+    f = np.asarray(scene.model.faces, np.int64)
+    big = (np.full(3, -1e9), np.full(3, 1e9))
+    for _ in range(n_subdiv):
+        v, f = midpoint_subdivide_in_bbox(v, f, big)
+    if target_faces is not None and len(f) > target_faces:
+        v, f = cluster_decimate(v, f, target_faces=target_faces)
+    labels = garment_labels(v, f)
+    v_labels = np.zeros(len(v), np.int64)
+    v_labels[np.unique(f[labels == 1])] = 1
+    return seq_template(v, f, labels, v_labels, device)
 
 
 def disc_target(resolution: Tuple[int, int], mvp: torch.Tensor,

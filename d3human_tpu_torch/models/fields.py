@@ -1,10 +1,10 @@
-"""Neural field: positional encoding + the Softplus(beta=100) skip MLP.
+"""Neural fields: positional encoding + the Softplus(beta=100) skip MLP,
+and the pose-conditioned nonrigid ``DeformMLP``.
 
 Counterpart of ``d3human_tpu/models/fields.py``. Parameters are a plain
 dict ``{"layers": [{"w": [d_in, d_out], "b": [d_out]}, ...]}`` in the JAX
 package's layout (``x @ w + b``), so converted JAX weights compute the same
-function. The pose-conditioned ``DeformMLP`` is not part of the init step
-and is not ported yet.
+function.
 """
 
 from __future__ import annotations
@@ -55,19 +55,23 @@ def _linear_init(gen: torch.Generator, d_in: int, d_out: int,
 class MLP:
     """Softplus MLP over positional-encoded 3-D points: input layer,
     ``n_hidden`` hidden layers (layer i takes [h, PE] when i in skip_in),
-    output layer, no output activation."""
+    output layer, no output activation. ``d_extra_in`` channels (a pose
+    code) precede the encoding at the input layer only: the skip layers
+    concatenate the encoding alone."""
 
     def __init__(self, n_freq=6, d_hidden=256, d_out=1, n_hidden=6,
-                 skip_in: Sequence[int] = (3,)):
+                 skip_in: Sequence[int] = (3,), d_extra_in: int = 0):
         self.n_freq = n_freq
         self.d_hidden = d_hidden
         self.d_out = d_out
         self.n_hidden = n_hidden
         self.skip_in = tuple(skip_in)
+        self.d_extra_in = d_extra_in
         self.d_emb = posenc_dim(3, n_freq)
 
     def init(self, gen: torch.Generator, device="cuda") -> Params:
-        layers = [_linear_init(gen, self.d_emb, self.d_hidden, device)]
+        layers = [_linear_init(gen, self.d_emb + self.d_extra_in,
+                               self.d_hidden, device)]
         for i in range(self.n_hidden):
             d_in = self.d_hidden + (self.d_emb if i in self.skip_in else 0)
             layers.append(_linear_init(gen, d_in, self.d_hidden, device))
@@ -86,3 +90,21 @@ class MLP:
             lin = layers[i + 1]
             h = softplus100(h @ lin["w"] + lin["b"])
         return h @ layers[-1]["w"] + layers[-1]["b"]
+
+
+class DeformMLP(MLP):
+    """Pose-conditioned offset field: [pose code, PE(x)] -> MLP -> d_out,
+    the code broadcast over the points."""
+
+    def __init__(self, n_freq=8, d_hidden=256, d_out=3, n_hidden=6,
+                 skip_in: Sequence[int] = (3,), pose_dim=136):
+        super().__init__(n_freq=n_freq, d_hidden=d_hidden, d_out=d_out,
+                         n_hidden=n_hidden, skip_in=skip_in,
+                         d_extra_in=pose_dim)
+        self.pose_dim = pose_dim
+
+    def apply(self, params: Params, x: torch.Tensor,
+              pose_code: torch.Tensor) -> torch.Tensor:
+        code = pose_code.reshape(self.pose_dim).expand(
+            *x.shape[:-1], self.pose_dim)
+        return super().apply(params, x, extra=code)

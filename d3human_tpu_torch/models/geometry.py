@@ -1,27 +1,35 @@
-"""The implicit human model of the init and split stages: SDF MLP + mSDF
-G-Shell geometry posed by SMPL-X LBS (counterpart of the init- and
-split-path part of ``d3human_tpu/models/geometry.py:GeometryModel``).
+"""The hybrid human model (counterpart of
+``d3human_tpu/models/geometry.py``): SDF MLP + mSDF G-Shell geometry posed
+by SMPL-X LBS for the init and split stages, and the seq stage's nonrigid
+refinement of an explicit merged body+cloth template (``SeqTemplate``,
+``seq_deformed``, ``collision_loss``).
 
-Parameters are a dict of tensors: ``sdf_net`` (MLP layers), ``msdf`` and
-``deform`` per lattice vertex. Other geometry leaves converted from a JAX
-tree (``nonrigid``, ``body_nonrigid``, ``cond``, ``render_cond``,
-``fix_code``) ride along unread: neither step reads them.
+Parameters are a dict of tensors in the JAX package's tree: ``sdf_net``
+(MLP layers), ``msdf`` and ``deform`` per lattice vertex, the nonrigid
+DeformMLPs ``nonrigid`` (read by seq) and ``body_nonrigid``, the per-frame
+latents ``cond`` / ``render_cond`` and the pose code ``fix_code``. No step
+reads ``body_nonrigid``, ``cond`` or ``render_cond``; they keep the
+optimizer's groups as the reference has them.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+import dataclasses
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from d3human_tpu_torch.config import Config
-from d3human_tpu_torch.models.fields import MLP
+from d3human_tpu_torch.models.fields import MLP, DeformMLP
 from d3human_tpu_torch.models.smplx.deformer import (
     CanonicalState, SMPLXDeformer,
 )
+from d3human_tpu_torch.ops import mesh_ops
+from d3human_tpu_torch.ops.knn import knn1
 from d3human_tpu_torch.ops.marching_tets import (
     GShellMesh, gshell_extract, gshell_extract_pair,
 )
+from d3human_tpu_torch.ops.scatter import gather_rows
 from d3human_tpu_torch.ops.tet_grid import TetGrid
 
 Params = dict
@@ -32,6 +40,26 @@ class ExtractedMeshes(NamedTuple):
     sdf: torch.Tensor             # [N] field values on the deformed grid
     verts_posed: torch.Tensor     # [MV+4MT, 3]
     verts_template: torch.Tensor  # [MV+4MT, 3]
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqTemplate:
+    """Static merged body+cloth template of the seq stage, index dtypes as
+    in the JAX package. Every vertex lies in exactly one of ``body_vidx`` /
+    ``cloth_vidx``."""
+
+    v: torch.Tensor                # [Vt, 3] float32
+    f: torch.Tensor                # [Ft, 3] int32
+    v_labels: torch.Tensor         # [Vt] int32, 0 body / 1 cloth
+    face_labels: torch.Tensor      # [Ft] int32
+    body_vidx: torch.Tensor        # [Nb] int32
+    cloth_vidx: torch.Tensor       # [Nc] int32
+    body_f: torch.Tensor           # [Fb, 3] int32, ids into v
+    connected_faces: torch.Tensor  # [P, 2] int32
+    # skinning weights [Vt, J] transferred once at the rest template
+    # (stages.seq_static_skin_weights); None: transferred at the deformed
+    # positions every step, as the reference does
+    w_pts: Optional[torch.Tensor] = None
 
 
 class GeometryModel:
@@ -48,19 +76,34 @@ class GeometryModel:
         f = cfg.field
         self.sdf_mlp = MLP(n_freq=f.n_freq, d_hidden=f.d_hidden,
                            n_hidden=f.n_hidden, skip_in=f.skip_in, d_out=1)
+        self.nonrigid = DeformMLP(n_freq=f.n_freq_deform, d_hidden=f.d_hidden,
+                                  n_hidden=f.n_hidden, skip_in=f.skip_in,
+                                  pose_dim=f.pose_code_dim, d_out=3)
         self.max_verts = cfg.geometry.max_verts
         self.max_tets = cfg.geometry.max_tets
         self.max_displacement = cfg.geometry.max_displacement
 
-    def init_params(self, gen: torch.Generator) -> Params:
-        """sdf_net (nn.Linear init), msdf ~ U - 0.01 clipped, deform = 0."""
+    def init_params(self, gen: torch.Generator, n_images: int) -> Params:
+        """The JAX package's tree from ``gen``: sdf_net and both DeformMLPs
+        (nn.Linear init), msdf ~ U - 0.01 clipped, deform = 0, cond and
+        render_cond ~ U [n_images + 1, cond_dim], fix_code ~ 0.1 N
+        [1, 1, pose_code_dim]."""
         dev = self.grid.verts.device
         N = self.grid.n_verts
+        f = self.cfg.field
         sdf_net = self.sdf_mlp.init(gen, dev)
         msdf = torch.clamp(torch.rand((N,), generator=gen) - 0.01,
                            -1.0, 1.0).to(dev)
         return {"sdf_net": sdf_net, "msdf": msdf,
-                "deform": torch.zeros((N, 3), device=dev)}
+                "deform": torch.zeros((N, 3), device=dev),
+                "nonrigid": self.nonrigid.init(gen, dev),
+                "body_nonrigid": self.nonrigid.init(gen, dev),
+                "cond": torch.rand((n_images + 1, f.cond_dim),
+                                   generator=gen).to(dev),
+                "render_cond": torch.rand((n_images + 1, f.cond_dim),
+                                          generator=gen).to(dev),
+                "fix_code": 0.1 * torch.randn((1, 1, f.pose_code_dim),
+                                              generator=gen).to(dev)}
 
     @staticmethod
     def clamp_params(params: Params) -> None:
@@ -85,10 +128,10 @@ class GeometryModel:
         return mesh, sdf
 
     def pose_verts(self, verts: torch.Tensor,
-                   pose_params: Dict[str, torch.Tensor],
-                   frame_idx: int) -> torch.Tensor:
+                   pose_params: Dict[str, torch.Tensor], frame_idx: int,
+                   w_pts: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self.deformer.lbs_forward(self.canon, verts, pose_params,
-                                         frame_idx)
+                                         frame_idx, w_pts=w_pts)
 
     def get_meshes(self, params: Params, pose_params, frame_idx: int,
                    msdf_sign: float = 1.0) -> ExtractedMeshes:
@@ -119,6 +162,31 @@ class GeometryModel:
 
         return pack(cloth), pack(body)
 
+    def seq_deformed(self, params: Params, template: SeqTemplate,
+                     pose_params, frame_idx: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(posed [Vt, 3], delta [Vt, 3]): the nonrigid MLP's offsets of the
+        cloth and the body vertices (both sets read ``nonrigid``, with
+        ``fix_code``) on the template, then LBS (ref hmsdf.py:632-703)."""
+        code = params["fix_code"]
+        v = template.v
+        cloth_idx = template.cloth_vidx.long()
+        body_idx = template.body_vidx.long()
+        cloth_delta = self.nonrigid.apply(params["nonrigid"], v[cloth_idx],
+                                          code)
+        body_delta = self.nonrigid.apply(params["nonrigid"], v[body_idx],
+                                         code)
+        delta = torch.zeros_like(v).index_copy(0, cloth_idx, cloth_delta) \
+            .index_copy(0, body_idx, body_delta)
+        posed = self.pose_verts(v + delta, pose_params, frame_idx,
+                                w_pts=template.w_pts)
+        return posed, delta
+
+    def static_skin_weights(self, verts: torch.Tensor) -> torch.Tensor:
+        """Skinning weights [V, J] transferred once at ``verts`` (for
+        stages.seq_static_skin_weights)."""
+        return self.deformer.interpolate_weights(self.canon, verts)
+
     def pretrain_sdf(self, params: Params, target_sdf: torch.Tensor,
                      steps: int, lr: float = 1e-3) -> Tuple[Params, float]:
         """Fit sdf_net to target SDF values at the (undeformed) grid
@@ -142,3 +210,27 @@ class GeometryModel:
         out["sdf_net"] = {"layers": [{k: v.detach() for k, v in lay.items()}
                                      for lay in layers]}
         return out, float(loss.detach())
+
+
+def collision_loss(cloth_pos: torch.Tensor, body_pos: torch.Tensor,
+                   body_faces: torch.Tensor,
+                   push_eps: float = 0.005) -> torch.Tensor:
+    """Cloth-vs-body interpenetration hinge (ref hmsdf.py:98-132): each
+    cloth point's nearest body face centre (blocked K=1 search), the signed
+    distance along that face's normal, mean squared hinge on eps - d.
+
+    As in the JAX package, ``body_faces`` index ``body_pos`` with ids
+    clamped to its last row (a JAX gather clamps; the seq tick passes the
+    template's ids into the body-vertex subset). The centre/normal gather's
+    backward is the scatter kernel."""
+    faces = body_faces.long().clamp(0, body_pos.shape[0] - 1)
+    tri = gather_rows(body_pos, faces)                    # [Fb, 3, 3]
+    # the mean as XLA computes it: the sum times the reciprocal
+    centers = (tri[:, 0] + tri[:, 1] + tri[:, 2]) * (1.0 / 3.0)
+    n = mesh_ops.safe_normalize(torch.linalg.cross(
+        tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0], dim=-1))
+    _, idx = knn1(cloth_pos, centers)
+    nn_cn = gather_rows(torch.cat([centers, n], dim=-1), idx)
+    d = ((cloth_pos - nn_cn[:, :3]) * nn_cn[:, 3:]).sum(-1)
+    inter = torch.relu(push_eps - d)
+    return (inter * inter).mean()

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -75,9 +75,11 @@ class SMPLXDeformer:
 
     def lbs_forward(self, canon: CanonicalState, pts: torch.Tensor,
                     smplx_params: Dict[str, torch.Tensor],
-                    frame_idx: int) -> torch.Tensor:
+                    frame_idx: int,
+                    w_pts: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Canonicalize pts w.r.t. init_A, re-pose with the frame's
-        transforms and add its translation (ref deformer.py:434-486)."""
+        transforms and add its translation (ref deformer.py:434-486).
+        ``w_pts`` [P, J] skips the weight transfer with given weights."""
         def frame(name, d):
             return smplx_params[name][frame_idx].reshape(1, d)
 
@@ -94,7 +96,8 @@ class SMPLXDeformer:
             rhand_pose=frame("rhand_pose", 45),
             expression=frame("expr", ne),
             transl=trans)
-        w_pts = self.interpolate_weights(canon, pts)
+        if w_pts is None:
+            w_pts = self.interpolate_weights(canon, pts)
         pts_c = self.apply_lbs_inverse(pts, canon.init_A, w_pts, inverse=True)
         pts_new = self.apply_lbs_inverse(pts_c, A, w_pts, inverse=False)
         return pts_new + trans.reshape(1, 3)

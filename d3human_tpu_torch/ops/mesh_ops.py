@@ -1,10 +1,13 @@
 """Masked mesh operations on fixed-capacity buffers (counterpart of the
-init- and split-path part of ``d3human_tpu/ops/mesh_ops.py``)."""
+init-, split- and seq-path part of ``d3human_tpu/ops/mesh_ops.py``): the
+normals, the surface sampler, the seq stage's smoothness losses and the
+host-side face adjacency of a static mesh."""
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from d3human_tpu_torch.ops.scatter import gather_rows, segment_add_rows
@@ -42,6 +45,69 @@ def auto_normals(verts: torch.Tensor, faces: torch.Tensor,
     v_nrm = torch.where(bad, torch.tensor([0.0, 0.0, 1.0],
                                           device=fn.device), v_nrm)
     return safe_normalize(v_nrm)
+
+
+def laplacian_uniform_loss(verts: torch.Tensor, faces: torch.Tensor,
+                           face_valid: Optional[torch.Tensor] = None,
+                           vert_valid: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """mean ||L V||^2 of the uniform (umbrella) Laplacian, matrix-free:
+    each vertex's [neighbour sum | degree] over both directions of the
+    three face edges in ONE scatter of 6F rows x 4 floats, in the JAX
+    package's row order; the corners come from one fused row gather (its
+    backward is the scatter kernel too)."""
+    V = verts.shape[0]
+    w = (torch.ones((faces.shape[0], 1), dtype=verts.dtype,
+                    device=verts.device) if face_valid is None
+         else face_valid.to(verts.dtype)[:, None])
+    tri = gather_rows(verts, faces)                       # [F, 3, 3]
+    idx_parts, val_parts = [], []
+    for a, b in ((0, 1), (1, 2), (2, 0)):
+        idx_parts += [faces[:, a], faces[:, b]]
+        val_parts += [torch.cat([tri[:, b] * w, w], dim=-1),
+                      torch.cat([tri[:, a] * w, w], dim=-1)]
+    acc = segment_add_rows(torch.cat(val_parts), torch.cat(idx_parts), V)
+    nbr_sum, deg = acc[:, :3], acc[:, 3]
+    lap = nbr_sum / torch.clamp_min(deg, 1.0)[:, None] - verts
+    ok = deg > 0
+    if vert_valid is not None:
+        ok = ok & vert_valid
+    sq = (lap * lap).sum(-1)
+    return (torch.where(ok, sq, torch.zeros((), device=sq.device)).sum()
+            / torch.clamp_min(ok.sum(), 1))
+
+
+def normal_consistency_loss(verts: torch.Tensor, faces: torch.Tensor,
+                            connected_faces: torch.Tensor,
+                            pair_valid: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """mean (1 - cos(n_i, n_j))^2 over the adjacent face pairs
+    ``connected_faces`` [P, 2]; both gathers' backwards are the scatter
+    kernel."""
+    n = gather_rows(face_normals(verts, faces), connected_faces)  # [P, 2, 3]
+    cos = torch.clamp((n[:, 0] * n[:, 1]).sum(-1), -1.0, 1.0)
+    term = (1.0 - cos) ** 2
+    if pair_valid is not None:
+        return (torch.where(pair_valid, term,
+                            torch.zeros((), device=term.device)).sum()
+                / torch.clamp_min(pair_valid.sum(), 1))
+    return term.mean()
+
+
+def find_connected_faces(faces: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-side adjacency of a static mesh: (connected_faces [P, 2] int64,
+    edges [E, 2]) over the edges shared by exactly two faces."""
+    f = np.asarray(faces)
+    e = np.sort(f[:, [0, 1, 1, 2, 2, 0]].reshape(-1, 2), axis=1)
+    face_ids = np.repeat(np.arange(len(f)), 3)
+    key = e[:, 0].astype(np.int64) << 32 | e[:, 1].astype(np.int64)
+    order = np.argsort(key, kind="stable")
+    ks, fs = key[order], face_ids[order]
+    uniq, start, counts = np.unique(ks, return_index=True, return_counts=True)
+    two = counts == 2
+    pairs = np.stack([fs[start[two]], fs[start[two] + 1]], axis=1)
+    edges = np.stack([uniq >> 32, uniq & 0xFFFFFFFF], axis=1).astype(np.int64)
+    return pairs.astype(np.int64), edges
 
 
 def sample_points_on_mesh(

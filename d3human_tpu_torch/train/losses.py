@@ -1,8 +1,8 @@
-"""Loss ticks of the init and split stages (counterpart of
+"""Loss ticks of the init, split and seq stages (counterpart of
 ``d3human_tpu/train/losses.py``: ``tick_init``, ``tick_split_one``,
-``tick_split``; ref hmsdf.py:810-1096 with the training loops' totals at
-train.py:718 and :1040-1087). Every tick renders the current geometry and
-returns a dict of named losses.
+``tick_split``, ``tick_seq``; ref hmsdf.py:810-1182 with the training
+loops' totals at train.py:718, :1040-1087 and :1412-1421). Every tick
+renders the current geometry and returns a dict of named losses.
 
 init:  mask MSE x100, the rendered-mSDF hinges (log-only), eikonal on
        surface samples (a double backward), the annealed sign-flip
@@ -12,12 +12,17 @@ split: per half (cloth mSDF > 0, body mSDF < 0, one shared extraction) the
        regularizer, material smoothness + chroma, the x5 perceptual normal
        loss on a random crop; the mesh-mSDF open/close regularizer is
        log-only.
+seq:   the nonrigid DeformMLP's offsets on the merged template + LBS, the
+       shaded render with the face labels, the mask split into cloth and
+       body by the per-pixel label, three mask and three image losses, the
+       shading regularizers, the offsets' squared sum, the x20 perceptual
+       normal loss, the Laplacian, normal-consistency and collision losses.
 
 Random numbers come from ``generator`` unless ``draws`` injects them: a dict
 with ``"eik": (u [n], uv [n, 2])`` uniform draws of the eikonal sampler,
 ``"render": (n_tex, n_uv)`` standard normals of the render's jitter taps
 and ``"crop": (top, left)``; ``tick_split`` takes one such dict per half,
-``{"cloth": ..., "body": ...}``."""
+``{"cloth": ..., "body": ...}``; ``tick_seq`` only ``"render"``."""
 
 from __future__ import annotations
 
@@ -26,14 +31,16 @@ from typing import Dict, Optional
 import torch
 
 from d3human_tpu_torch.config import Config
-from d3human_tpu_torch.models.geometry import GeometryModel
+from d3human_tpu_torch.models.geometry import (
+    GeometryModel, SeqTemplate, collision_loss,
+)
 from d3human_tpu_torch.models.perceptual import (
     ConvPerceptual, random_crop_pair,
 )
 from d3human_tpu_torch.ops import mesh_ops
 from d3human_tpu_torch.ops.image_loss import make_loss_fn
 from d3human_tpu_torch.ops.marching_tets import sdf_reg_loss
-from d3human_tpu_torch.ops.scatter import coo_scatter_add
+from d3human_tpu_torch.ops.scatter import coo_scatter_add, gather_rows
 from d3human_tpu_torch.render import regularizer
 from d3human_tpu_torch.render.pipeline import MeshBuffers, render_mesh
 
@@ -322,4 +329,81 @@ def tick_split(generator: Optional[torch.Generator], model: GeometryModel,
     out = {"total": total}
     for name, half in halves.items():
         out.update({f"{name}_{k}": v for k, v in half.items()})
+    return out
+
+
+def tick_seq(generator: Optional[torch.Generator], model: GeometryModel,
+             params, pose_params, tex_module, tex_params,
+             perceptual: ConvPerceptual, perc_params, template: SeqTemplate,
+             target: dict, it: int, cfg: Config,
+             raster_opts: Optional[dict] = None,
+             draws: Optional[dict] = None) -> Dict[str, torch.Tensor]:
+    """One seq iteration with the driver's weights (ref train.py:1412-1421):
+    250 x normal + 0.1 x shading regularizers + the three mask losses
+    + 1e6 x Laplacian + 1e5 x collision + 1e3 x normal consistency + the
+    offsets' squared sum. The image losses are log-only."""
+    posed, delta = model.seq_deformed(params, template, pose_params,
+                                      int(target["frame_idx"]))
+    r, lc = cfg.render, cfg.loss
+    buffers = render_mesh(
+        generator, posed, template.v, template.f,
+        torch.ones((template.f.shape[0],), dtype=torch.bool,
+                   device=posed.device),
+        target["mvp"], target["campos"], tuple(r.train_res), tex_module,
+        tex_params, target["background"], face_labels=template.face_labels,
+        spp=r.spp, raster_opts=raster_opts,
+        max_covered_frac=r.max_covered_frac,
+        jitter_subsample=r.jitter_subsample, aa_dense=r.aa_dense,
+        draws=(draws or {}).get("render"))
+
+    # mask decomposition by the per-pixel face label (ref hmsdf.py:788-798)
+    alpha = buffers.alpha
+    cloth_mask = buffers.mesh_id * alpha
+    body_mask = (1.0 - buffers.mesh_id) * alpha
+    gt_all, gt_cloth, gt_body = (target["all_img"], target["cloth_img"],
+                                 target["body_img"])
+    loss_fn = make_loss_fn(lc.loss)
+    rgb = buffers.shaded[..., 0:3]
+    all_msk = 200.0 * ((alpha - gt_all[..., 3:]) ** 2).mean()
+    cloth_msk = 200.0 * ((cloth_mask - gt_cloth[..., 3:]) ** 2).mean()
+    body_msk = 200.0 * ((body_mask - gt_body[..., 3:]) ** 2).mean()
+    all_img = loss_fn(rgb * alpha, gt_all[..., 0:3])
+    cloth_img = loss_fn(rgb * cloth_mask, gt_cloth[..., 0:3])
+    body_img = loss_fn(rgb * body_mask, gt_body[..., 0:3])
+
+    if buffers.stats is not None:
+        mtl_smooth = regularizer.material_smoothness_compact(
+            buffers.stats, lc.lambda_kd, lc.lambda_ks, lc.lambda_nrm)
+    else:
+        mtl_smooth = regularizer.material_smoothness_grad(
+            buffers.kd_grad, buffers.ks_grad, buffers.normal_grad,
+            lc.lambda_kd, lc.lambda_ks, lc.lambda_nrm)
+    chroma = regularizer.chroma_loss(buffers.kd, gt_all, lc.lambda_chroma)
+    shading_reg = mtl_smooth + chroma
+    delta_loss = (delta * delta).sum()
+
+    out_n, ref_n = _normal_images(buffers, target["all_normal"])
+    normal_loss = 20.0 * perceptual.loss(perc_params, out_n[None],
+                                         ref_n[None])
+
+    lap = mesh_ops.laplacian_uniform_loss(posed, template.f)
+    nds_normal = mesh_ops.normal_consistency_loss(
+        posed, template.f, template.connected_faces)
+    colli = collision_loss(gather_rows(posed, template.cloth_vidx),
+                           gather_rows(posed, template.body_vidx),
+                           template.body_f, lc.collision_push_eps)
+
+    total = (250.0 * normal_loss + 0.1 * shading_reg
+             + body_msk + cloth_msk + all_msk
+             + 1e6 * lap + 1e5 * colli + 1e3 * nds_normal + delta_loss)
+    out = {
+        "total": total, "all_img_loss": all_img, "all_msk_loss": all_msk,
+        "cloth_img_loss": cloth_img, "cloth_msk_loss": cloth_msk,
+        "body_img_loss": body_img, "body_msk_loss": body_msk,
+        "laplacian_loss": lap, "colli_loss": colli,
+        "nds_normal_loss": nds_normal, "normal_loss": normal_loss,
+        "delta_loss": delta_loss, "mtl_smooth_loss": mtl_smooth,
+        "chroma_loss": chroma, "reg_loss": shading_reg,
+    }
+    out.update(capacity_metrics(buffers))
     return out

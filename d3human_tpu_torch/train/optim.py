@@ -1,4 +1,4 @@
-"""Per-group Adam of the init and split stages (counterpart of
+"""Per-group Adam of the init, split and seq stages (counterpart of
 ``d3human_tpu/train/optim.py``): the reference's LambdaLR schedule (linear
 warmup, then 10^(-(it - warmup) * 2e-4)), per-stage learning-rate groups of
 the geometry leaves with optional per-group global-norm clipping, and the
@@ -8,11 +8,14 @@ Geometry groups by name (ref train.py:599-614 and :895-901):
   init   ``deform`` x1, ``sdf_net`` x sdf_lr_mult, ``msdf`` and the
          nonrigid MLPs frozen, other leaves x1e-3;
   split  ``deform`` x1, ``msdf`` x1, nonrigid x1e-3, ``sdf_net`` frozen,
-         other leaves x1e-2.
-The pose tensors run at lr_pos * 1e-3, the material at lr_mat with its
-hash-table gradients times ``hashgrid_grad_scale``, the light at lr_lgt
-with its gradient times ``light_grad_scale``; none of the three is
-clipped. A frozen leaf gets no update at all.
+         other leaves x1e-2;
+  seq    the nonrigid MLPs and ``cond``-named leaves x1e-2 (``fix_code``
+         is not one), everything else frozen, the pose too (ref
+         train.py:1296-1304).
+The pose tensors run at lr_pos * 1e-3 (init and split), the material at
+lr_mat with its hash-table gradients times ``hashgrid_grad_scale``, the
+light at lr_lgt with its gradient times ``light_grad_scale``; none of the
+three is clipped. A frozen leaf gets no update at all.
 """
 
 from __future__ import annotations
@@ -80,12 +83,20 @@ def geometry_label(stage: str, path: str) -> str:
         if "sdf_net" in path:
             return "frozen"
         return "x1e-2"
-    raise ValueError(f"stage {stage!r}: the port has the init and split "
-                     "stages")
+    if stage == "seq":
+        if "nonrigid" in path:
+            return "x1e-2"
+        if "cond" in path and "fix_code" not in path:
+            return "x1e-2"
+        return "frozen"
+    raise ValueError(f"stage {stage!r}: the port has the init, split and "
+                     "seq stages")
 
 
 def param_label(stage: str, path: str) -> str:
     top = path.split("/", 1)[0]
+    if top == "pose" and stage == "seq":
+        return "frozen"
     if top in ("pose", "material", "light"):
         return top
     if top == "geometry":

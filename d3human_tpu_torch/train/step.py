@@ -1,4 +1,4 @@
-"""Training steps of the init and split stages (counterpart of
+"""Training steps of the init, split and seq stages (counterpart of
 ``d3human_tpu/train/step.py:make_train_step``): loss tick, backward,
 per-group Adam, and the post-step clamps. PyTorch runs it eagerly;
 parameters update in place."""
@@ -11,7 +11,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from d3human_tpu_torch.config import Config
-from d3human_tpu_torch.models.geometry import GeometryModel
+from d3human_tpu_torch.models.geometry import GeometryModel, SeqTemplate
 from d3human_tpu_torch.models.perceptual import ConvPerceptual
 from d3human_tpu_torch.render import light as light_mod
 from d3human_tpu_torch.train import losses as L
@@ -41,9 +41,12 @@ def init_state(stage: str, params: dict, cfg: Config) -> TrainState:
 def stage_tick(stage: str, model: GeometryModel, tex_module,
                perceptual: ConvPerceptual, perc_params, params: dict,
                target: dict, it: int, cfg: Config, raster_opts=None,
-               generator=None, draws=None) -> Dict[str, torch.Tensor]:
+               generator=None, draws=None,
+               template: Optional[SeqTemplate] = None
+               ) -> Dict[str, torch.Tensor]:
     """The loss dict of one iteration of ``stage``. ``draws`` injects the
-    random numbers of the tick (see ``tick_init`` / ``tick_split``)."""
+    random numbers of the tick (see ``train/losses.py``); the seq stage
+    needs its ``template``."""
     g, pose, mat = params["geometry"], params["pose"], params.get("material")
     if stage == "init":
         return L.tick_init(generator, model, g, pose, tex_module, mat,
@@ -53,14 +56,21 @@ def stage_tick(stage: str, model: GeometryModel, tex_module,
         return L.tick_split(generator, model, g, pose, tex_module, mat,
                             perceptual, perc_params, target, it, cfg,
                             raster_opts, draws=draws)
-    raise ValueError(f"stage {stage!r}: the port has the init and split "
-                     "stages")
+    if stage == "seq":
+        if template is None:
+            raise ValueError("the seq stage needs its template")
+        return L.tick_seq(generator, model, g, pose, tex_module, mat,
+                          perceptual, perc_params, template, target, it, cfg,
+                          raster_opts, draws=draws)
+    raise ValueError(f"stage {stage!r}: the port has the init, split and "
+                     "seq stages")
 
 
 def loss_and_grads(stage: str, model: GeometryModel, tex_module,
                    perceptual: ConvPerceptual, perc_params, params: dict,
                    target: dict, it: int, cfg: Config, paths,
-                   raster_opts=None, generator=None, draws=None):
+                   raster_opts=None, generator=None, draws=None,
+                   template: Optional[SeqTemplate] = None):
     """(loss dict, {path: grad or None}) of one tick w.r.t. ``paths``."""
     leaves = dict(named_leaves(params))
     for p in paths:
@@ -68,7 +78,7 @@ def loss_and_grads(stage: str, model: GeometryModel, tex_module,
     try:
         out = stage_tick(stage, model, tex_module, perceptual, perc_params,
                          params, target, it, cfg, raster_opts, generator,
-                         draws)
+                         draws, template)
         grads = torch.autograd.grad(out["total"], [leaves[p] for p in paths],
                                     allow_unused=True)
     finally:
@@ -87,16 +97,25 @@ def _post_step(params: dict, model: GeometryModel) -> None:
 
 def make_train_step(stage: str, model: GeometryModel, tex_module,
                     perceptual: ConvPerceptual, perc_params, cfg: Config,
-                    raster_opts: Optional[dict] = None
+                    raster_opts: Optional[dict] = None,
+                    template: Optional[SeqTemplate] = None
                     ) -> Callable[..., Tuple[TrainState, Dict]]:
-    """step_fn(state, target, generator, draws=None) -> (state, metrics)."""
+    """step_fn(state, target, generator, draws=None) -> (state, metrics).
+    The seq stage trains on ``template``; with
+    ``stages.seq_static_skin_weights`` its skinning weights are transferred
+    here once, at the rest template, where it carries none."""
+    if (stage == "seq" and cfg.stages.seq_static_skin_weights
+            and template is not None and template.w_pts is None):
+        with torch.no_grad():
+            template = dataclasses.replace(
+                template, w_pts=model.static_skin_weights(template.v))
 
     def step_fn(state: TrainState, target: dict,
                 generator: Optional[torch.Generator] = None, draws=None):
         metrics, grads = loss_and_grads(
             stage, model, tex_module, perceptual, perc_params, state.params,
             target, state.step, cfg, state.opt.trainable_paths(),
-            raster_opts, generator, draws)
+            raster_opts, generator, draws, template)
         state.opt.step(state.params, grads)
         _post_step(state.params, model)
         state.step += 1

@@ -299,3 +299,14 @@ def test_cuda_small_tick_matches_cpu(cuda_device):
     import chip_smoke
 
     chip_smoke.phase_small(seed_steps=30)
+
+
+@pytest.mark.cuda
+def test_cuda_small_seq_tick_matches_cpu(cuda_device):
+    """The seq tick on chip_smoke's tiny template (the body subdivided
+    once): kernels on the card against the plain versions on the CPU,
+    counters exact, rel 1e-3."""
+    import chip_smoke
+
+    cpu, gpu = chip_smoke.small_scenes(seed_steps=0)
+    chip_smoke.compare_small_tick(cpu, gpu, "seq")
