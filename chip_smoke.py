@@ -721,6 +721,9 @@ def phase_kernels(sc: dict) -> list:
     tf = sc["seq_template"].f
     Vs = sc["seq_template"].v.shape[0]
     lap_idx = tf[:, [0, 1, 1, 2, 2, 0]].T.reshape(-1)
+    # with no hot row index_add_ beats the kernel at these shapes; they are
+    # held to the library again once the sort of the static template's
+    # indices is reused across calls (ROADMAP Queue 2 item 8)
     sc_seq = [check_scatter(*c, gen, faster=False) for c in [
         ("seq laplacian", lap_idx, torch.ones_like(lap_idx, dtype=torch.bool),
          4, Vs, False),

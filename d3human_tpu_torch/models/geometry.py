@@ -56,9 +56,10 @@ class SeqTemplate:
     cloth_vidx: torch.Tensor       # [Nc] int32
     body_f: torch.Tensor           # [Fb, 3] int32, ids into v
     connected_faces: torch.Tensor  # [P, 2] int32
-    # skinning weights [Vt, J] transferred once at the rest template
-    # (stages.seq_static_skin_weights); None: transferred at the deformed
-    # positions every step, as the reference does
+    # skinning weights [Vt, J] transferred once at the rest template (the
+    # stage driver's choice under stages.seq_static_skin_weights); None:
+    # transferred at the deformed positions every step, as the reference
+    # does
     w_pts: Optional[torch.Tensor] = None
 
 

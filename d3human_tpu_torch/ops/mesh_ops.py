@@ -47,9 +47,7 @@ def auto_normals(verts: torch.Tensor, faces: torch.Tensor,
     return safe_normalize(v_nrm)
 
 
-def laplacian_uniform_loss(verts: torch.Tensor, faces: torch.Tensor,
-                           face_valid: Optional[torch.Tensor] = None,
-                           vert_valid: Optional[torch.Tensor] = None
+def laplacian_uniform_loss(verts: torch.Tensor, faces: torch.Tensor
                            ) -> torch.Tensor:
     """mean ||L V||^2 of the uniform (umbrella) Laplacian, matrix-free:
     each vertex's [neighbour sum | degree] over both directions of the
@@ -57,41 +55,31 @@ def laplacian_uniform_loss(verts: torch.Tensor, faces: torch.Tensor,
     package's row order; the corners come from one fused row gather (its
     backward is the scatter kernel too)."""
     V = verts.shape[0]
-    w = (torch.ones((faces.shape[0], 1), dtype=verts.dtype,
-                    device=verts.device) if face_valid is None
-         else face_valid.to(verts.dtype)[:, None])
+    w = torch.ones((faces.shape[0], 1), dtype=verts.dtype,
+                   device=verts.device)
     tri = gather_rows(verts, faces)                       # [F, 3, 3]
     idx_parts, val_parts = [], []
     for a, b in ((0, 1), (1, 2), (2, 0)):
         idx_parts += [faces[:, a], faces[:, b]]
-        val_parts += [torch.cat([tri[:, b] * w, w], dim=-1),
-                      torch.cat([tri[:, a] * w, w], dim=-1)]
+        val_parts += [torch.cat([tri[:, b], w], dim=-1),
+                      torch.cat([tri[:, a], w], dim=-1)]
     acc = segment_add_rows(torch.cat(val_parts), torch.cat(idx_parts), V)
     nbr_sum, deg = acc[:, :3], acc[:, 3]
     lap = nbr_sum / torch.clamp_min(deg, 1.0)[:, None] - verts
     ok = deg > 0
-    if vert_valid is not None:
-        ok = ok & vert_valid
     sq = (lap * lap).sum(-1)
     return (torch.where(ok, sq, torch.zeros((), device=sq.device)).sum()
             / torch.clamp_min(ok.sum(), 1))
 
 
 def normal_consistency_loss(verts: torch.Tensor, faces: torch.Tensor,
-                            connected_faces: torch.Tensor,
-                            pair_valid: Optional[torch.Tensor] = None
-                            ) -> torch.Tensor:
+                            connected_faces: torch.Tensor) -> torch.Tensor:
     """mean (1 - cos(n_i, n_j))^2 over the adjacent face pairs
     ``connected_faces`` [P, 2]; both gathers' backwards are the scatter
     kernel."""
     n = gather_rows(face_normals(verts, faces), connected_faces)  # [P, 2, 3]
     cos = torch.clamp((n[:, 0] * n[:, 1]).sum(-1), -1.0, 1.0)
-    term = (1.0 - cos) ** 2
-    if pair_valid is not None:
-        return (torch.where(pair_valid, term,
-                            torch.zeros((), device=term.device)).sum()
-                / torch.clamp_min(pair_valid.sum(), 1))
-    return term.mean()
+    return ((1.0 - cos) ** 2).mean()
 
 
 def find_connected_faces(faces: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:

@@ -101,14 +101,8 @@ def make_train_step(stage: str, model: GeometryModel, tex_module,
                     template: Optional[SeqTemplate] = None
                     ) -> Callable[..., Tuple[TrainState, Dict]]:
     """step_fn(state, target, generator, draws=None) -> (state, metrics).
-    The seq stage trains on ``template``; with
-    ``stages.seq_static_skin_weights`` its skinning weights are transferred
-    here once, at the rest template, where it carries none."""
-    if (stage == "seq" and cfg.stages.seq_static_skin_weights
-            and template is not None and template.w_pts is None):
-        with torch.no_grad():
-            template = dataclasses.replace(
-                template, w_pts=model.static_skin_weights(template.v))
+    The seq stage trains on ``template``; a caller that wants static
+    skinning weights passes one whose ``w_pts`` holds them."""
 
     def step_fn(state: TrainState, target: dict,
                 generator: Optional[torch.Generator] = None, draws=None):

@@ -427,30 +427,29 @@ def test_seq_train_step_matches_jax(both, jax_grad):
 
 
 def test_seq_step_transfers_static_weights_once(both):
-    """With stages.seq_static_skin_weights the step transfers the weights
-    once at the rest template: its loss equals the tick's on a template
-    that carries those weights, and differs from the per-step transfer."""
+    """Weights transferred once at the rest template (as the stage driver
+    does under stages.seq_static_skin_weights) and carried by the template
+    are the ones the step uses: its loss equals the tick's on that
+    template, and differs from the per-step transfer."""
     from d3human_tpu_torch.train.step import (
         init_state, make_train_step, stage_tick,
     )
 
     j, _ = both
     p = _port(j)
-    cfg = dataclasses.replace(p["cfg"], stages=dataclasses.replace(
-        p["cfg"].stages, seq_static_skin_weights=True))
     draws = _seq_draws(j["cfg"])
     static = dataclasses.replace(p["template"], w_pts=p["model"]
                                  .static_skin_weights(p["template"].v))
     with torch.no_grad():
         want, per_step = (float(stage_tick(
             "seq", p["model"], p["tex"], p["perceptual"], p["perc_params"],
-            p["params"], p["target"], 0, cfg, RASTER_OPTS, draws=draws,
+            p["params"], p["target"], 0, p["cfg"], RASTER_OPTS, draws=draws,
             template=t)["total"]) for t in (static, p["template"]))
     step_fn = make_train_step("seq", p["model"], p["tex"], p["perceptual"],
-                              p["perc_params"], cfg, RASTER_OPTS,
-                              template=p["template"])
-    _, m = step_fn(init_state("seq", p["params"], cfg), p["target"], None,
-                   draws=draws)
+                              p["perc_params"], p["cfg"], RASTER_OPTS,
+                              template=static)
+    _, m = step_fn(init_state("seq", p["params"], p["cfg"]), p["target"],
+                   None, draws=draws)
     assert float(m["total"]) == want != per_step
 
 
@@ -502,14 +501,14 @@ def test_chip_smoke_seq_rehearsal():
                                                    sc["target"], gen)
     assert state.step == 1
     chip_smoke.check_step_metrics("seq", chip_smoke.scalars(m), "seq")
+    cfg, raster_opts = chip_smoke.stage_cfg(sc, "seq")
     outs = []
     for _ in range(2):
         with torch.no_grad():
             outs.append(chip_smoke.scalars(stage_tick(
                 "seq", sc["model"], sc["tex"], sc["perceptual"],
-                sc["perc_params"], sc["params"], sc["target"], 7, sc["cfg"],
-                sc["raster_opts"],
-                draws=chip_smoke.tick_draws(sc["cfg"], "seq", seed=1),
+                sc["perc_params"], sc["params"], sc["target"], 7, cfg,
+                raster_opts, draws=chip_smoke.tick_draws(cfg, "seq", seed=1),
                 template=sc["seq_template"])))
     assert outs[0] == outs[1]
     assert all(math.isfinite(v) for v in outs[0].values())
