@@ -20,6 +20,16 @@ object per line:
                capacities, capsule-seeded SDF, mSDF cut at mid height,
                default hash-grid texture, split targets (JAX package:
                bench.py build("full"))
+  field_setup  the field set-up between stages on a copy of the scene's
+               parameters: the SMPL template's SDF at the lattice vertices
+               (the tensor op, K=8) against the native engine at the same
+               points (max abs 5e-3, signs equal where |sdf| > 0.01),
+               FIELD_STEPS steps of pretrain_sdf to it and of
+               pretrain_nonrigid_zero (ms per step; both losses fall),
+               reinit_fields, and the SDF query chunked at
+               geometry.sdf_chunk against the unchunked one over the lattice
+               (forward rel 1e-6, sdf_net gradient rel-L2 1e-5; time and
+               peak memory of both)
   seq_scene    the seq bench's merged template built from the port alone
                (the body midpoint-subdivided 5 times, cluster-decimated to
                at most 415,000 faces, faces labelled by height): vertex,
@@ -64,6 +74,26 @@ object per line:
                covers fewer pixels than layer 0 and lies behind it
   profile      one more split step, then one more validation render of
                the cloth half, under torch.profiler
+  surgery      the JAX package's host route from the split stage to the
+               seq template (train_d3h.py), on the split steps' parameters:
+               export_stage_meshes, process_close_hole, the canonical
+               template as smpl_template.obj, merge_body_cloth at
+               grid_res min(96, geometry.grid_res), build_seq_template;
+               seconds of each step, faces and verts of each half, the
+               components moved, the body's faces at each step of the
+               merge, merged faces < 2^20, both labels non-empty, the
+               inside/outside body vertices and the branch that classified
+               them, the native engine answering every host SDF query, and
+               the launches and calls of first_k and the scatter
+  surgery_kernels  first_k and the scatter at the surgery's own inputs
+               (each call site's biggest call, recorded during the
+               surgery), and the resolve on the surgery template's binning
+               at the seq step's resolution, each held to its plain
+               version as in the kernels phase; reported under "surgery"
+               in each row
+  surgery_seq_step  the same as seq_step for SURGERY_SEQ_STEPS seq steps
+               on that template, on a copy of the parameters (the seq
+               config of seq_scene)
   seq_step     the same for SEQ_STEPS seq training steps: first_k exactly
                3 calls, the resolve 1 per step, n_cov > 0, the offsets'
                loss > 0
@@ -83,9 +113,11 @@ prints the kernel table without launch counts and no result line.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -95,6 +127,8 @@ H100_F32_OPS_PER_S = 67e12     # FP32 outside the tensor cores
 INIT_STEPS = 2                 # timed init steps after the warm-up step
 SPLIT_STEPS = 4                # timed split steps after the warm-up step
 SEQ_STEPS = 4                  # timed seq steps after the warm-up step
+SURGERY_SEQ_STEPS = 2          # timed seq steps on the surgery's template
+FIELD_STEPS = 30               # Adam steps of each field pretraining
 SEED_STEPS = 400               # Adam steps fitting the SDF to the capsule
 VAL_LAYERS = 2                 # depth-peeled layers of the validation render
 EXACT = ("n_cross", "n_valid_tets", "n_big_faces", "n_max_tile")
@@ -123,13 +157,16 @@ SCALES = {
     "full": dict(res=(1080, 1080), grid_res=128, mv=2 ** 18, mt=196608,
                  n_eik=50000, cov=0.25, crop=448, raster_opts=None,
                  # bench.py build_seq("full")
-                 seq=dict(n_subdiv=5, target_faces=415000, cov=0.5)),
+                 seq=dict(n_subdiv=5, target_faces=415000, cov=0.5),
+                 # the JAX package's default geometry.sdf_chunk
+                 sdf_chunk=131072),
     # a CPU-sized rehearsal of the same paths
     "tiny": dict(res=(32, 32), grid_res=8, mv=2048, mt=2048, n_eik=256,
                  cov=0.9, crop=24, raster_opts=dict(
                      tile=(8, 16), max_faces_per_tile=128, bin_expand=8,
                      max_global=128),
-                 seq=dict(n_subdiv=1, target_faces=None, cov=0.9)),
+                 seq=dict(n_subdiv=1, target_faces=None, cov=0.9),
+                 sdf_chunk=100),
 }
 
 
@@ -258,12 +295,12 @@ def tick_draws(cfg, stage: str, seed: int):
     return {"cloth": one(), "body": one()}
 
 
-def tree_to(tree, device):
+def tree_map(fn, tree):
     if isinstance(tree, dict):
-        return {k: tree_to(v, device) for k, v in tree.items()}
+        return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [tree_to(v, device) for v in tree]
-    return tree.to(device)
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
 
 
 def scalars(metrics: dict) -> dict:
@@ -310,25 +347,30 @@ def graph_ms(fn, reps: int = 20, calls: int = 1) -> float:
     return cuda_ms(graph.replay, reps=reps) / calls
 
 
-def parts_ms(fn, parts: dict, reps: int = 5) -> dict:
+def parts_ms(fn, parts: dict, reps: int = 5, tries: int = 3) -> dict:
     """Device time per call of ``fn`` by part, from the profiler's rows of
     the kernels (and memsets) that ``fn`` itself launches: ``parts`` maps a
     part's name to substrings of its kernels' names; what matches none is
-    ``other_ms``."""
+    ``other_ms``. A trace that holds no device row at all (the profiler
+    lost its device buffers) is taken again, up to ``tries`` times; the
+    callers' checks on the parts then apply to the trace that has rows."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if rows:
+            break
     out = {name: 0.0 for name in (*parts, "other_ms")}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for e in rows:
         part = next((name for name, keys in parts.items()
                      if any(k in e.name for k in keys)), "other_ms")
         out[part] += e.device_time_total / 1e3 / reps
@@ -363,7 +405,7 @@ def small_scenes(seed_steps: int):
     holding the same parameters."""
     cpu = build_scene("tiny", "cpu", seed_steps)
     gpu = build_scene("tiny", "cuda", 0)
-    gpu["params"] = tree_to(cpu["params"], "cuda")
+    gpu["params"] = tree_map(lambda t: t.to("cuda"), cpu["params"])
     for sc in (cpu, gpu):
         add_seq(sc, "tiny")
     return cpu, gpu
@@ -845,13 +887,14 @@ def check_step_metrics(stage: str, m: dict, where: str) -> None:
         check(m[half + "cap_cov"] > 0, f"{where}: {half}n_cov == 0")
 
 
-def phase_step(sc: dict, stage: str, steps: int) -> dict:
-    """Warm-up step, then ``steps`` timed training steps of ``stage``."""
+def phase_step(sc: dict, stage: str, steps: int, phase: str = None) -> dict:
+    """Warm-up step, then ``steps`` timed training steps of ``stage``,
+    reported as ``phase`` (default: the stage's step phase)."""
     import torch
 
     from d3human_tpu_torch.ops import compaction
 
-    phase, state_key = STEP_PHASE[stage], STATE_KEY[stage]
+    phase, state_key = phase or STEP_PHASE[stage], STATE_KEY[stage]
     step_fn = stage_step_fn(sc, stage)
     gen = torch.Generator(device="cuda").manual_seed(0)
     state = sc[state_key]
@@ -1068,6 +1111,400 @@ def phase_seq_knn(sc: dict) -> None:
     emit("seq_knn", **out)
 
 
+def sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def timed(device, fn):
+    """(fn(), seconds) with the device synchronised on both ends."""
+    sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    return out, time.perf_counter() - t0
+
+
+def peak_gib(device):
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def reset_peak(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def phase_field_setup(sc: dict, scale: str, steps: int) -> dict:
+    """The field set-up between stages on a copy of the scene's geometry
+    parameters (no later phase sees it): the SMPL template's SDF target by
+    the tensor op against the native engine, the two pretrainings, the
+    re-initialisation, and the chunked SDF query against the unchunked
+    one."""
+    import numpy as np
+    import torch
+
+    from d3human_tpu_torch.models.geometry import GeometryModel
+    from d3human_tpu_torch.native.meshsdf import MeshSDF
+
+    model = sc["model"]
+    grid, dev = model.grid, model.grid.verts.device
+    g = tree_map(torch.clone, sc["params"]["geometry"])
+    target, sdf_s = timed(dev, model.smpl_template_sdf)
+    verts = model.canon.vs_template[0].cpu().numpy()
+    faces = np.asarray(model.deformer.model.faces)
+    native, native_s = timed(dev, lambda: MeshSDF(verts, faces).query(
+        grid.verts.cpu().numpy(), sign_convention="pos_inside"))
+    dev_sdf = target.cpu().numpy()
+    diff = float(np.abs(dev_sdf - native).max())
+    far = np.abs(native) > 0.01
+    sign_bad = int((np.sign(dev_sdf[far]) != np.sign(native[far])).sum())
+    check(diff < 5e-3, f"field_setup: tensor SDF vs native engine {diff}")
+    check(sign_bad == 0, f"field_setup: {sign_bad} signs differ")
+
+    code = torch.zeros((1, 1, sc["cfg"].field.pose_code_dim), device=dev)
+
+    def sdf_loss(p):
+        with torch.no_grad():
+            return float(((model.sdf_mlp.apply(p["sdf_net"], grid.verts)
+                           [..., 0] - target) ** 2).mean())
+
+    def zero_loss(p):
+        with torch.no_grad():
+            return float((model.nonrigid.apply(p["nonrigid"], grid.verts,
+                                               code) ** 2).mean())
+
+    sdf0, zero0 = sdf_loss(g), zero_loss(g)
+    (g, _), sdf_fit_s = timed(dev, lambda: model.pretrain_sdf(
+        g, target, steps=steps))
+    g, zero_fit_s = timed(dev, lambda: model.pretrain_nonrigid_zero(
+        g, steps=steps))
+    sdf1, zero1 = sdf_loss(g), zero_loss(g)
+    check(sdf1 < sdf0, f"field_setup: pretrain_sdf loss {sdf0} -> {sdf1}")
+    check(zero1 < zero0,
+          f"field_setup: pretrain_nonrigid_zero loss {zero0} -> {zero1}")
+    fresh = model.reinit_fields(torch.Generator().manual_seed(5), g)
+    check(fresh["msdf"].shape == g["msdf"].shape
+          and float(fresh["msdf"].min()) >= -0.01
+          and float(fresh["msdf"].max()) <= 1.0
+          and [lay["w"].shape for lay in fresh["sdf_net"]["layers"]]
+          == [lay["w"].shape for lay in g["sdf_net"]["layers"]],
+          "field_setup: reinit_fields shapes or ranges")
+
+    chunk = SCALES[scale]["sdf_chunk"]
+    cfg = sc["cfg"]
+    chunked = GeometryModel(cfg.replace(geometry=dataclasses.replace(
+        cfg.geometry, sdf_chunk=chunk)), grid, model.deformer, model.canon)
+    w = torch.randn((grid.n_verts,), generator=torch.Generator()
+                    .manual_seed(6)).to(dev)
+    query = {}
+    for name, m in (("unchunked", model), ("chunked", chunked)):
+        net = {"layers": [{k: t.detach().clone().requires_grad_(True)
+                           for k, t in lay.items()}
+                          for lay in g["sdf_net"]["layers"]]}
+        leaves = [t for lay in net["layers"] for t in (lay["w"], lay["b"])]
+
+        def run(m=m, net=net, leaves=leaves):
+            out = m.query_sdf({"sdf_net": net}, grid.verts)
+            grads = torch.autograd.grad((out * w).sum(), leaves)
+            return out.detach(), torch.cat([x.reshape(-1) for x in grads])
+
+        run()
+        reset_peak(dev)
+        (out, grad), secs = timed(dev, run)
+        query[name] = dict(out=out, grad=grad, ms=secs * 1e3,
+                           peak_mem_gib=peak_gib(dev))
+    a, b = query["chunked"], query["unchunked"]
+    fwd_rel = float((a["out"] - b["out"]).abs().max() / b["out"].abs().max())
+    grad_rel = float(torch.linalg.norm(a["grad"] - b["grad"])
+                     / torch.linalg.norm(b["grad"]))
+    check(fwd_rel <= 1e-6, f"field_setup: chunked query forward {fwd_rel}")
+    check(grad_rel <= 1e-5, f"field_setup: chunked query grad {grad_rel}")
+    out = dict(points=grid.n_verts, template_faces=len(faces),
+               smpl_template_sdf_s=sdf_s, native_engine_s=native_s,
+               tensor_vs_native_max_abs=diff, tolerance="abs 5e-3",
+               signs_compared=int(far.sum()), steps=steps,
+               pretrain_sdf_ms_per_step=sdf_fit_s * 1e3 / steps,
+               pretrain_sdf_loss=[sdf0, sdf1],
+               pretrain_nonrigid_zero_ms_per_step=zero_fit_s * 1e3 / steps,
+               pretrain_nonrigid_zero_loss=[zero0, zero1],
+               sdf_chunk=chunk, chunked_forward_rel=fwd_rel,
+               chunked_grad_rel_l2=grad_rel,
+               query_fwd_bwd={k: dict(ms=v["ms"],
+                                      peak_mem_gib=v["peak_mem_gib"])
+                              for k, v in query.items()})
+    del g, fresh, query, a, b, target, chunked
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    emit("field_setup", **out)
+    return out
+
+
+SURGERY_DIR = "d3human_tpu_torch/build/smoke_surgery"
+
+
+def consistent_winding(faces) -> float:
+    """Share of the interior edges (edges of two faces) that the two faces
+    run in opposite directions: 1 for a consistently wound mesh."""
+    import numpy as np
+
+    e = np.concatenate([faces[:, [0, 1]], faces[:, [1, 2]], faces[:, [2, 0]]])
+    _, inv, cnt = np.unique(np.sort(e, axis=1), axis=0, return_inverse=True,
+                            return_counts=True)
+    ups = np.bincount(inv.reshape(-1), weights=e[:, 0] < e[:, 1])
+    two = cnt == 2
+    return float((ups[two] == 1).mean()) if two.any() else 1.0
+
+
+@contextlib.contextmanager
+def recording_kernel_inputs():
+    """While active, the names the extraction (``first_k_indices``, the
+    corner count's ``coo_scatter_add``) and the mesh ops (``auto_normals``'
+    ``segment_add_rows``) call the kernels by are bound to wrappers that
+    record each call and pass it on. Yields {kernel: {call site: {"calls":
+    n, "args": the site's biggest call}}}: first_k's (mask, k, fill) with
+    the largest (k, n), the scatter's (idx, vals, out_rows) with the most
+    values."""
+    from d3human_tpu_torch.ops import marching_tets as mt
+    from d3human_tpu_torch.ops import mesh_ops
+
+    seen = {"first_k_indices": {}, "coo_scatter_add": {}}
+
+    def keep(kernel, size, args):
+        f = sys._getframe(2)                  # the wrapper's caller
+        site = f"{os.path.basename(f.f_code.co_filename)}:{f.f_lineno}"
+        s = seen[kernel].setdefault(site, dict(calls=0, size=None))
+        s["calls"] += 1
+        if s["size"] is None or size > s["size"]:
+            s["size"], s["args"] = size, args
+
+    def first_k(mask, k, fill_value, fn=mt.first_k_indices):
+        keep("first_k_indices", (k, mask.numel()), (mask, k, fill_value))
+        return fn(mask, k, fill_value)
+
+    def corner_count(idx, vals, out_rows, fn=mt.coo_scatter_add):
+        keep("coo_scatter_add", vals.numel(), (idx, vals.detach(), out_rows))
+        return fn(idx, vals, out_rows)
+
+    def segment_add(vals, idx, out_rows, fn=mesh_ops.segment_add_rows):
+        keep("coo_scatter_add", vals.numel(), (idx, vals.detach(), out_rows))
+        return fn(vals, idx, out_rows)
+
+    patches = [(mt, "first_k_indices", first_k),
+               (mt, "coo_scatter_add", corner_count),
+               (mesh_ops, "segment_add_rows", segment_add)]
+    saved = [(m, name, getattr(m, name)) for m, name, _ in patches]
+    for m, name, fn in patches:
+        setattr(m, name, fn)
+    try:
+        yield seen
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+
+
+def check_scatter_values(what: str, idx, vals, rows_out: int) -> dict:
+    """The scatter on the rows a call site really summed: within rel 1e-5
+    / abs 1e-6 of the plain version (the kernels' order of additions), and
+    within the error bound of a float32 sum of k terms in any order,
+    (k - 1) * 2^-24 * sum|terms| per row, of the float64 sum. Real rows can
+    cancel (a vertex's face normals of both windings), so another order
+    alone can move such a sum by more than the random rows' 1e-4: the
+    library's distance to the float64 sum is reported beside the
+    kernel's."""
+    import torch
+
+    from d3human_tpu_torch.ops import scatter
+
+    got = scatter.coo_scatter_add(idx, vals, rows_out)
+    want = scatter.coo_scatter_add_plain(idx, vals, rows_out, False)
+    err = (got - want).abs()
+    check(bool((err <= 1e-6 + 1e-5 * want.abs()).all()),
+          f"scatter {what} (recorded rows): max err {float(err.max())}")
+    didx = torch.where((idx >= 0) & (idx < rows_out), idx, rows_out).long()
+
+    def row_sum(v):
+        return torch.zeros((rows_out + 1, v.shape[1]), dtype=v.dtype,
+                           device=v.device).index_add_(0, didx, v)[:rows_out]
+
+    exact = row_sum(vals.double())
+    k = torch.bincount(didx, minlength=rows_out + 1)[:rows_out].double()
+    # the float64 sum's own error, (k - 1) * 2^-53 * sum|terms|, is added
+    bound = ((k - 1).clamp_min(0) * (2.0 ** -24 + 2.0 ** -52))[:, None] \
+        * row_sum(vals.double().abs())
+    e_kernel = (got.double() - exact).abs()
+    e_library = (row_sum(vals).double() - exact).abs()
+    check(bool((e_kernel <= bound).all()),
+          f"scatter {what} (recorded rows): {float(e_kernel.max())} from "
+          f"the float64 sum, beyond the float32 bound")
+    return dict(N=idx.numel(), C=vals.shape[1], out_rows=rows_out,
+                bitwise=torch.equal(got, want), max_abs_err=float(err.max()),
+                max_rows_per_out_row=int(k.max()),
+                kernel_vs_float64=float(e_kernel.max()),
+                library_vs_float64=float(e_library.max()),
+                kernel_vs_library=float((got - row_sum(vals)).abs().max()),
+                float32_bound_max=float(bound.max()))
+
+
+def phase_surgery_kernels(rows: list, inputs: dict, ssc: dict) -> None:
+    """The kernels at the surgery's own inputs, outside the counted runs:
+    first_k and the scatter at each call site's biggest recorded call (the
+    scatter on the site's indices with random rows, as at every other
+    shape, and on its recorded rows), the resolve on the surgery
+    template's binning at the seq step's resolution (oversize faces in the
+    shared list); each held to its plain version as in the kernels phase,
+    timed beside the library and not held to it. Adds to those kernels'
+    rows a ``surgery`` entry (the resolve's: ``surgery_seq_step``)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    fk, sa = {}, {}
+    for site, s in inputs["first_k_indices"].items():
+        mask, k, fill = s["args"]
+        check(fill == mask.numel(), f"first_k at {site}: fill {fill}")
+        fk[site] = check_first_k(f"surgery {site}", mask, k, faster=False)
+    for site, s in inputs["coo_scatter_add"].items():
+        idx, vals, out_rows = s["args"]
+        what = f"surgery {site}"
+        sa[site] = check_scatter(
+            what, idx, torch.ones((idx.numel(),), dtype=torch.bool,
+                                  device=idx.device),
+            vals.shape[1], out_rows, False, gen, faster=False)
+        sa[site]["recorded_rows"] = check_scatter_values(what, idx, vals,
+                                                         out_rows)
+    seq = seq_kernel_inputs(ssc)
+    F = ssc["seq_template"].f.shape[0]
+    stats = binning_stats(seq["binned"], seq["v_clip"], ssc["seq_template"].f,
+                          seq["fvalid"], seq["res"])
+    _, rs = check_resolve(seq["binned"], F)
+    emit("surgery_kernels", exact_first_k_and_resolve=True,
+         scatter_tolerance="rel 1e-5 abs 1e-6",
+         calls_by_site={k: {site: s["calls"] for site, s in v.items()}
+                        for k, v in inputs.items()},
+         first_k=fk, scatter=sa, resolve=dict(rs, faces=F, binning=stats))
+    by_name = {r["name"]: r for r in rows}
+    by_name["first_k_indices"]["surgery"] = {
+        site: dict(kernel_summary(r), shape=f"n={r['n']} k={r['k']}")
+        for site, r in fk.items()}
+    by_name["coo_scatter_add"]["surgery"] = {
+        site: dict(kernel_summary(r), shape=(
+            f"N={r['N']} C={r['C']} out={r['out_rows']}"))
+        for site, r in sa.items()}
+    by_name["resolve_tiles"]["surgery_seq_step"] = dict(
+        kernel_summary(rs), library_ms=None,
+        shape=(f"NT={rs['NT']} M={rs['M']} live={rs['live_slots']}"),
+        n_global=stats["n_global"], longest_list=stats["longest_list"])
+
+
+def phase_surgery(sc: dict, out_dir: str) -> dict:
+    """The JAX package's route from the split stage to the seq template
+    (train_d3h.py, the split stage's end) on the scene's parameters, files
+    under ``out_dir``; kernel counts reset just before and read just after,
+    the kernels' inputs recorded by call site. Returns the launches and
+    calls, the template and the recorded inputs."""
+    import shutil
+
+    import numpy as np
+
+    from d3human_tpu_torch.ops import mesh_sdf
+    from d3human_tpu_torch.pipeline.components import process_close_hole
+    from d3human_tpu_torch.pipeline.template import (
+        build_seq_template, merge_body_cloth,
+    )
+    from d3human_tpu_torch.train.stages import export_stage_meshes
+    from d3human_tpu_torch.utils import io as mesh_io
+
+    model, cfg = sc["model"], sc["cfg"]
+    dev = model.grid.verts.device
+    shutil.rmtree(out_dir, ignore_errors=True)
+    join = os.path.join
+    for k in mesh_sdf.ENGINE_COUNTS:
+        mesh_sdf.ENGINE_COUNTS[k] = 0
+    sync(dev)
+    reset_counts()
+    secs = {}
+    with recording_kernel_inputs() as inputs:
+        paths, secs["export_stage_meshes"] = timed(dev, lambda: (
+            export_stage_meshes(model, sc["params"],
+                                join(out_dir, "split_cloth0"), "final")))
+        ch, secs["process_close_hole"] = timed(dev, lambda: (
+            process_close_hole(join(out_dir, "close_hole_split_cloth0"),
+                               paths["body"], paths["cloth"])))
+        smpl_path = join(out_dir, "smpl_template.obj")
+        _, secs["smpl_template_obj"] = timed(dev, lambda: mesh_io.write_obj(
+            smpl_path, model.canon.vs_template[0],
+            model.deformer.model.faces))
+        process_dir = join(out_dir, "processsplit_cloth0")
+        merge, secs["merge_body_cloth"] = timed(dev, lambda: merge_body_cloth(
+            process_dir, ch["body"], ch["cloth"],
+            grid_res=min(96, cfg.geometry.grid_res), smpl_obj=smpl_path,
+            bbox_npz=ch["bbox"], device=dev))
+        template, secs["build_seq_template"] = timed(
+            dev, lambda: build_seq_template(process_dir, device=dev))
+    n = read_counts()
+    calls = n.pop("calls")
+    engines = dict(mesh_sdf.ENGINE_COUNTS)
+
+    halves = {}
+    for k in ("cloth", "body", "watertight"):
+        v, f = mesh_io.load_obj(paths[k])
+        halves[k] = dict(verts=len(v), faces=len(f),
+                         consistent_winding=consistent_winding(f))
+    for k in ("cloth", "body"):
+        v, f = mesh_io.load_obj(ch[k])
+        halves[k + "_after_close_hole"] = dict(verts=len(v), faces=len(f))
+    lab = template.face_labels.cpu().numpy()
+    c = merge["counts"]
+    check(c["merged_faces"] < 1 << 20,
+          f"surgery: {c['merged_faces']} merged faces")
+    check(int((lab == 0).sum()) > 0 and int((lab == 1).sum()) > 0,
+          "surgery: a label of the merged template is empty")
+    check(engines["device"] == 0 and engines["native"] > 0,
+          f"surgery: host SDF queries answered by {engines}")
+    # the wrappers count launches on the card only
+    check(dev.type != "cuda" or (n["first_k_indices"] > 0
+                                 and n["coo_scatter_add"] > 0),
+          f"surgery: launches {n}")
+    # every counted call went through a recorded call site
+    recorded = {k: sum(s["calls"] for s in v.values())
+                for k, v in inputs.items()}
+    check(dev.type != "cuda" or all(recorded[k] == calls[k]
+                                    for k in recorded),
+          f"surgery: recorded calls {recorded}, counted {calls}")
+    out = dict(seconds=secs, total_s=sum(secs.values()), halves=halves,
+               components=ch["components"], merge=c, branch=merge["branch"],
+               branch_error=merge.get("error"), engines=engines,
+               template=dict(n_verts=int(template.v.shape[0]),
+                             n_faces=int(template.f.shape[0]),
+                             cloth_faces=int((lab == 1).sum()),
+                             body_faces=int((lab == 0).sum()),
+                             cloth_verts=int(template.cloth_vidx.shape[0]),
+                             body_verts=int(template.body_vidx.shape[0]),
+                             adjacent_pairs=int(
+                                 template.connected_faces.shape[0])),
+               launches=n, calls=calls, recorded_calls=recorded)
+    emit("surgery", **out)
+    return dict(launches=n, calls=calls, template=template, inputs=inputs)
+
+
+def surgery_scene(sc: dict, template) -> dict:
+    """The scene with the surgery's template as its seq template and a
+    seq state on a copy of the parameters (no other phase sees its
+    steps)."""
+    from d3human_tpu_torch.train.step import init_state
+
+    params = tree_map(lambda t: t.clone(), sc["params"])
+    return dict(sc, params=params, seq_template=template,
+                seq_state=init_state("seq", params, sc["seq_cfg"]))
+
+
 def one_more_step(sc: dict, stage: str) -> None:
     import torch
 
@@ -1108,6 +1545,7 @@ def main() -> int:
          texture_resolutions=sc["tex"].encoder.resolutions,
          texture_dense=sc["tex"].encoder.dense,
          pretrain_loss=sc["pretrain_loss"])
+    phase_field_setup(sc, "full", FIELD_STEPS)
     emit("seq_scene", **add_seq(sc, "full"))
 
     rows = phase_kernels(sc)
@@ -1122,13 +1560,22 @@ def main() -> int:
     phase_profile("split step", lambda: one_more_step(sc, "split"))
     phase_profile("validation render, cloth half",
                   lambda: validation_render(sc, 1.0))
+    surgery = phase_surgery(sc, os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), SURGERY_DIR))
+    ssc = surgery_scene(sc, surgery.pop("template"))
+    phase_surgery_kernels(rows, surgery.pop("inputs"), ssc)
+    paths["surgery"] = surgery
+    paths["surgery_seq_step"] = phase_step(ssc, "seq", SURGERY_SEQ_STEPS,
+                                           phase="surgery_seq_step")
+    del ssc
     paths["seq_step"] = phase_step(sc, "seq", SEQ_STEPS)
     phase_profile("seq step", lambda: one_more_step(sc, "seq"))
     phase_seq_knn(sc)
     for r in rows:
         # launches: the kernel's launches on the driven paths (INIT_STEPS
         # init steps, SPLIT_STEPS split steps, one validation render of
-        # each half, SEQ_STEPS seq steps); first_k counts its count and
+        # each half, the surgery, SURGERY_SEQ_STEPS seq steps on its
+        # template, SEQ_STEPS seq steps); first_k counts its count and
         # write launches, the scatter each launch of its two sum kernels,
         # and their calls are the calls of the wrapper
         for what in ("launches", "calls"):
@@ -1139,6 +1586,7 @@ def main() -> int:
     emit("paths", init_step={"steps": INIT_STEPS},
          split_step={"steps": SPLIT_STEPS},
          validate={"renders": 2, "layers": VAL_LAYERS},
+         surgery={"runs": 1}, surgery_seq_step={"steps": SURGERY_SEQ_STEPS},
          seq_step={"steps": SEQ_STEPS},
          launches={k: v["launches"] for k, v in paths.items()},
          calls={k: v["calls"] for k, v in paths.items()})

@@ -32,9 +32,9 @@ class GeometryConfig:
     max_verts: int = 2 ** 18
     max_tets: int = 196608
     n_eikonal_samples: int = 50000
-    # the port evaluates the SDF MLP unchunked (the chunked remat path of
-    # the JAX package is not ported)
-    sdf_chunk: int = 0
+    # points per chunk of the SDF MLP over a longer point set, each chunk
+    # recomputed in the backward (0: one unchunked pass)
+    sdf_chunk: int = 131072
 
     @property
     def max_displacement(self) -> float:

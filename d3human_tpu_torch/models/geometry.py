@@ -2,7 +2,9 @@
 ``d3human_tpu/models/geometry.py``): SDF MLP + mSDF G-Shell geometry posed
 by SMPL-X LBS for the init and split stages, and the seq stage's nonrigid
 refinement of an explicit merged body+cloth template (``SeqTemplate``,
-``seq_deformed``, ``collision_loss``).
+``seq_deformed``, ``collision_loss``), and the fields' set-up between
+stages (``smpl_template_sdf``, ``pretrain_sdf``, ``pretrain_nonrigid_zero``,
+``reinit_fields``).
 
 Parameters are a dict of tensors in the JAX package's tree: ``sdf_net``
 (MLP layers), ``msdf`` and ``deform`` per lattice vertex, the nonrigid
@@ -17,7 +19,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from d3human_tpu_torch.config import Config
 from d3human_tpu_torch.models.fields import MLP, DeformMLP
@@ -29,6 +33,7 @@ from d3human_tpu_torch.ops.knn import knn1
 from d3human_tpu_torch.ops.marching_tets import (
     GShellMesh, gshell_extract, gshell_extract_pair,
 )
+from d3human_tpu_torch.ops.mesh_sdf import mesh_sdf
 from d3human_tpu_torch.ops.scatter import gather_rows
 from d3human_tpu_torch.ops.tet_grid import TetGrid
 
@@ -66,10 +71,6 @@ class SeqTemplate:
 class GeometryModel:
     def __init__(self, cfg: Config, grid: TetGrid, deformer: SMPLXDeformer,
                  canon: CanonicalState):
-        if cfg.geometry.sdf_chunk:
-            raise NotImplementedError(
-                "geometry.sdf_chunk > 0: the port evaluates the SDF MLP "
-                "unchunked")
         self.cfg = cfg
         self.grid = grid
         self.deformer = deformer
@@ -106,6 +107,17 @@ class GeometryModel:
                 "fix_code": 0.1 * torch.randn((1, 1, f.pose_code_dim),
                                               generator=gen).to(dev)}
 
+    def reinit_fields(self, gen: torch.Generator, params: Params) -> Params:
+        """A new tree with msdf (~ U - 0.01, clipped) and sdf_net drawn
+        anew from ``gen``, the rest shared (ref train.py:1802-1803)."""
+        dev = self.grid.verts.device
+        out = dict(params)
+        out["msdf"] = torch.clamp(
+            torch.rand((self.grid.n_verts,), generator=gen) - 0.01,
+            -1.0, 1.0).to(dev)
+        out["sdf_net"] = self.sdf_mlp.init(gen, dev)
+        return out
+
     @staticmethod
     def clamp_params(params: Params) -> None:
         """Post-step clamps, in place (ref hmsdf.py:404-408)."""
@@ -114,7 +126,24 @@ class GeometryModel:
             params["msdf"].clamp_(-2.0, 2.0)
 
     def query_sdf(self, params: Params, pts: torch.Tensor) -> torch.Tensor:
-        return self.sdf_mlp.apply(params["sdf_net"], pts)[..., 0]
+        """The SDF MLP at pts [N, 3]. Longer than ``geometry.sdf_chunk``
+        points, it runs chunk by chunk (zero-padded to whole chunks), each
+        recomputed in the backward, so the backward's activations exist for
+        one chunk at a time (the JAX package's ``jax.checkpoint`` under
+        ``lax.map``)."""
+        chunk = self.cfg.geometry.sdf_chunk
+        n = pts.shape[0] if pts.dim() == 2 else None
+
+        def apply(p):
+            return self.sdf_mlp.apply(params["sdf_net"], p)[..., 0]
+
+        if not chunk or n is None or n <= chunk:
+            return apply(pts)
+        pts_p = torch.nn.functional.pad(pts, (0, 0, 0, (-n) % chunk))
+        return torch.cat([
+            torch.utils.checkpoint.checkpoint(apply, blk,
+                                              use_reentrant=False)
+            for blk in pts_p.split(chunk)])[:n]
 
     def deformed_grid(self, params: Params) -> torch.Tensor:
         return self.grid.verts + self.max_displacement * params["deform"]
@@ -188,29 +217,63 @@ class GeometryModel:
         stages.seq_static_skin_weights)."""
         return self.deformer.interpolate_weights(self.canon, verts)
 
+    @staticmethod
+    def _fit(net: Params, loss_fn, steps: int, lr: float
+             ) -> Tuple[Params, float]:
+        """Full-batch Adam on a copy of an MLP's layers: ``steps`` steps
+        minimising ``loss_fn(layers)``. Returns the fitted layers and the
+        last step's loss (taken before its update)."""
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for lay in net["layers"] for t in (lay["w"], lay["b"])]
+        layers = {"layers": [{"w": leaves[2 * i], "b": leaves[2 * i + 1]}
+                             for i in range(len(leaves) // 2)]}
+        opt = torch.optim.Adam(leaves, lr=lr, eps=1e-8)
+        loss = torch.zeros(())
+        for _ in range(steps):
+            opt.zero_grad(set_to_none=True)
+            loss = loss_fn(layers)
+            loss.backward()
+            opt.step()
+        return ({"layers": [{k: v.detach() for k, v in lay.items()}
+                            for lay in layers["layers"]]},
+                float(loss.detach()))
+
     def pretrain_sdf(self, params: Params, target_sdf: torch.Tensor,
                      steps: int, lr: float = 1e-3) -> Tuple[Params, float]:
         """Fit sdf_net to target SDF values at the (undeformed) grid
         vertices with full-batch Adam (ref hmsdf.py:251-273). Returns the
         new params and the final loss."""
-        net = [t.detach().clone().requires_grad_(True)
-               for lay in params["sdf_net"]["layers"] for t in (lay["w"],
-                                                               lay["b"])]
-        layers = [{"w": net[2 * i], "b": net[2 * i + 1]}
-                  for i in range(len(net) // 2)]
-        opt = torch.optim.Adam(net, lr=lr, eps=1e-8)
         tgt = target_sdf.reshape(-1)
-        loss = torch.zeros(())
-        for _ in range(steps):
-            opt.zero_grad(set_to_none=True)
-            out = self.sdf_mlp.apply({"layers": layers}, self.grid.verts)
-            loss = ((out[..., 0] - tgt) ** 2).mean()
-            loss.backward()
-            opt.step()
         out = dict(params)
-        out["sdf_net"] = {"layers": [{k: v.detach() for k, v in lay.items()}
-                                     for lay in layers]}
-        return out, float(loss.detach())
+        out["sdf_net"], loss = self._fit(
+            params["sdf_net"], lambda net: ((self.sdf_mlp.apply(
+                net, self.grid.verts)[..., 0] - tgt) ** 2).mean(),
+            steps, lr)
+        return out, loss
+
+    def pretrain_nonrigid_zero(self, params: Params, steps: int,
+                               which: str = "nonrigid",
+                               lr: float = 1e-3) -> Params:
+        """Fit the DeformMLP ``which`` to output zeros at the grid vertices
+        under a zero pose code, full-batch Adam (ref hmsdf.py:276-308)."""
+        code = torch.zeros((1, 1, self.cfg.field.pose_code_dim),
+                           device=self.grid.verts.device)
+        out = dict(params)
+        out[which], _ = self._fit(
+            params[which], lambda net: (self.nonrigid.apply(
+                net, self.grid.verts, code) ** 2).mean(), steps, lr)
+        return out
+
+    def smpl_template_sdf(self) -> torch.Tensor:
+        """Signed distance [N] of the canonical template at the grid
+        vertices, positive inside (ref hmsdf.py:236-237 negates pysdf): the
+        tensor op ``mesh_sdf`` with K=8."""
+        verts = self.canon.vs_template[0]
+        faces = torch.as_tensor(np.asarray(self.deformer.model.faces),
+                                dtype=torch.int64, device=verts.device)
+        with torch.no_grad():
+            return mesh_sdf(self.grid.verts, verts, faces, k=8,
+                            sign_convention="pos_inside")
 
 
 def collision_loss(cloth_pos: torch.Tensor, body_pos: torch.Tensor,

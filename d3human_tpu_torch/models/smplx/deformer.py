@@ -95,7 +95,10 @@ class SMPLXDeformer:
             lhand_pose=frame("lhand_pose", 45),
             rhand_pose=frame("rhand_pose", 45),
             expression=frame("expr", ne),
-            transl=trans)
+            transl=trans,
+            face_offset=smplx_params.get("face_offset"),
+            joint_offset=smplx_params.get("joint_offset"),
+            locator_offset=smplx_params.get("locator_offset"))
         if w_pts is None:
             w_pts = self.interpolate_weights(canon, pts)
         pts_c = self.apply_lbs_inverse(pts, canon.init_A, w_pts, inverse=True)

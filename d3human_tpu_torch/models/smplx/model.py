@@ -33,10 +33,15 @@ class SMPLXModel:
     def forward(self, betas, root_pose, body_pose, jaw_pose=None,
                 leye_pose=None, reye_pose=None, lhand_pose=None,
                 rhand_pose=None, expression=None,
-                transl: Optional[torch.Tensor] = None):
+                transl: Optional[torch.Tensor] = None,
+                face_offset: Optional[torch.Tensor] = None,
+                joint_offset: Optional[torch.Tensor] = None,
+                locator_offset: Optional[torch.Tensor] = None):
         """Returns (verts [B,V,3], joints [B,J,3], A [B,J,4,4]); the pose
         vector [root, body, jaw, leye, reye, lhand, rhand] is cut to the
-        model's joint count."""
+        model's joint count. ``face_offset`` [B,V,3] moves the template
+        before the blendshapes, ``joint_offset`` / ``locator_offset``
+        [B,J,3] the regressed joints and the chain's joints."""
         B = betas.shape[0]
         J = self.num_joints
 
@@ -50,10 +55,14 @@ class SMPLXModel:
             dim=1)[:, : J * 3]
         shape = torch.cat([betas, z(expression, self.num_expr)], dim=-1)
         shape = shape[:, : self.shapedirs.shape[-1]]
-        verts, joints, A = lbs(shape, full_pose, self.v_template[None],
+        v_template = self.v_template[None]
+        if face_offset is not None:
+            v_template = v_template + face_offset
+        verts, joints, A = lbs(shape, full_pose, v_template,
                                self.shapedirs, self.posedirs,
                                self.J_regressor, self.parents,
-                               self.lbs_weights)
+                               self.lbs_weights, joint_offset=joint_offset,
+                               locator_offset=locator_offset)
         if transl is not None:
             verts = verts + transl[:, None, :]
             joints = joints + transl[:, None, :]

@@ -1,7 +1,7 @@
 """Masked mesh operations on fixed-capacity buffers (counterpart of the
 init-, split- and seq-path part of ``d3human_tpu/ops/mesh_ops.py``): the
 normals, the surface sampler, the seq stage's smoothness losses and the
-host-side face adjacency of a static mesh."""
+host-side face adjacency and connected components of a static mesh."""
 
 from __future__ import annotations
 
@@ -130,3 +130,25 @@ def sample_points_on_mesh(
     b2 = su * uv[:, 1:2]
     tri = verts[faces[fidx].long()]                       # [S, 3, 3]
     return b0 * tri[:, 0] + b1 * tri[:, 1] + b2 * tri[:, 2]
+
+
+def connected_components(faces: np.ndarray, n_verts: int) -> np.ndarray:
+    """Per-vertex component labels [V] int64 of a static mesh: a
+    union-find over the faces' vertices (each label is its component's
+    root vertex, as the JAX package's union-find leaves it). Host-side, on
+    Python lists."""
+    parent = list(range(n_verts))
+
+    def find(x):
+        root = x
+        while parent[root] != root:
+            root = parent[root]
+        while parent[x] != root:
+            parent[x], x = root, parent[x]
+        return root
+
+    for a, b, c in np.asarray(faces).tolist():
+        r = find(a)
+        parent[find(b)] = r
+        parent[find(c)] = r
+    return np.fromiter((find(i) for i in range(n_verts)), np.int64, n_verts)

@@ -1,0 +1,142 @@
+"""Mesh files of the stage artifacts (counterpart of
+``d3human_tpu/utils/io.py``): OBJ and binary PLY reading and writing, in
+the JAX package's text and byte layout, and the host-side compaction and
+welding of the extraction's fixed-capacity meshes. Arrays may be numpy
+arrays or tensors on any device."""
+
+from __future__ import annotations
+
+import os
+from typing import Optional, Tuple
+
+import numpy as np
+
+
+def host(a) -> np.ndarray:
+    """A numpy array of ``a`` (a tensor is copied off its device)."""
+    if hasattr(a, "detach"):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def write_obj(path: str, verts, faces, normals=None, uv=None,
+              uv_idx=None) -> None:
+    """OBJ writer; with ``uv`` and ``uv_idx`` the faces are v/vt pairs."""
+    verts, faces = host(verts), host(faces)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        for v in verts:
+            f.write(f"v {v[0]:.6f} {v[1]:.6f} {v[2]:.6f}\n")
+        if normals is not None:
+            for n in host(normals):
+                f.write(f"vn {n[0]:.6f} {n[1]:.6f} {n[2]:.6f}\n")
+        if uv is not None:
+            for t in host(uv):
+                f.write(f"vt {t[0]:.6f} {t[1]:.6f}\n")
+        if uv is not None and uv_idx is not None:
+            for t, tt in zip(faces + 1, host(uv_idx) + 1):
+                f.write(f"f {t[0]}/{tt[0]} {t[1]}/{tt[1]} {t[2]}/{tt[2]}\n")
+        else:
+            for t in faces + 1:
+                f.write(f"f {t[0]} {t[1]} {t[2]}\n")
+
+
+def load_obj(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """(verts [V, 3] float32, faces [F, 3] int64) of an OBJ: the first
+    three corners of each face, texture and normal indices dropped."""
+    verts, faces = [], []
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if not parts:
+                continue
+            if parts[0] == "v":
+                verts.append([float(x) for x in parts[1:4]])
+            elif parts[0] == "f":
+                faces.append([int(p.split("/")[0]) - 1 for p in parts[1:4]])
+    return (np.asarray(verts, np.float32).reshape(-1, 3),
+            np.asarray(faces, np.int64).reshape(-1, 3))
+
+
+def write_ply(path: str, verts, faces,
+              vert_colors: Optional[np.ndarray] = None) -> None:
+    """Binary little-endian PLY; ``vert_colors`` in [0, 1] as 8-bit rgb."""
+    verts = host(verts).astype(np.float32)
+    faces = host(faces).astype(np.int32)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    header = ["ply", "format binary_little_endian 1.0",
+              f"element vertex {len(verts)}",
+              "property float x", "property float y", "property float z"]
+    if vert_colors is not None:
+        header += ["property uchar red", "property uchar green",
+                   "property uchar blue"]
+    header += [f"element face {len(faces)}",
+               "property list uchar int vertex_indices", "end_header"]
+    with open(path, "wb") as f:
+        f.write(("\n".join(header) + "\n").encode())
+        if vert_colors is None:
+            f.write(verts.astype("<f4").tobytes())
+        else:
+            rec = np.zeros(len(verts),
+                           dtype=[("xyz", "<f4", 3), ("rgb", "u1", 3)])
+            rec["xyz"] = verts
+            rec["rgb"] = np.clip(host(vert_colors) * 255, 0, 255).astype(
+                np.uint8)
+            f.write(rec.tobytes())
+        rec = np.zeros(len(faces), dtype=[("n", "u1"), ("idx", "<i4", 3)])
+        rec["n"] = 3
+        rec["idx"] = faces
+        f.write(rec.tobytes())
+
+
+def read_ply(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """(verts, faces) of a PLY that ``write_ply`` wrote (colors skipped)."""
+    with open(path, "rb") as f:
+        n_verts = n_faces = 0
+        has_color = False
+        while True:
+            line = f.readline().decode().strip()
+            if line.startswith("element vertex"):
+                n_verts = int(line.split()[-1])
+            elif line.startswith("element face"):
+                n_faces = int(line.split()[-1])
+            elif line.startswith("property uchar red"):
+                has_color = True
+            elif line == "end_header":
+                break
+        if has_color:
+            rec = np.frombuffer(f.read(n_verts * 15),
+                                dtype=[("xyz", "<f4", 3), ("rgb", "u1", 3)])
+            verts = np.array(rec["xyz"], np.float32)
+        else:
+            verts = np.frombuffer(f.read(n_verts * 12), "<f4").reshape(
+                n_verts, 3).copy()
+        rec = np.frombuffer(f.read(n_faces * 13),
+                            dtype=[("n", "u1"), ("idx", "<i4", 3)])
+        return verts, np.array(rec["idx"], np.int64)
+
+
+def compact_mesh(verts, faces, face_valid) -> Tuple[np.ndarray, np.ndarray]:
+    """The valid faces of a fixed-capacity mesh over only the vertices they
+    use, indices remapped (int64)."""
+    faces = host(faces)[host(face_valid)]
+    used, inv = np.unique(faces.reshape(-1), return_inverse=True)
+    return host(verts)[used], inv.reshape(-1, 3).astype(np.int64)
+
+
+def weld_mesh(verts, faces, tol: float = 1e-6
+              ) -> Tuple[np.ndarray, np.ndarray]:
+    """Merge vertices that coincide at ``tol`` (the extraction emits
+    duplicates where the surface passes through a lattice vertex) and drop
+    the faces that degenerate."""
+    verts, faces = host(verts), host(faces)
+    q = np.round(verts / tol).astype(np.int64)
+    _, first, inv = np.unique(q, axis=0, return_index=True,
+                              return_inverse=True)
+    new_faces = inv.reshape(-1)[faces]
+    ok = ((new_faces[:, 0] != new_faces[:, 1])
+          & (new_faces[:, 1] != new_faces[:, 2])
+          & (new_faces[:, 0] != new_faces[:, 2]))
+    new_faces = new_faces[ok]
+    used, inv2 = np.unique(new_faces.reshape(-1), return_inverse=True)
+    return verts[first][used], inv2.reshape(-1, 3).astype(np.int64)

@@ -512,3 +512,66 @@ def test_chip_smoke_seq_rehearsal():
                 template=sc["seq_template"])))
     assert outs[0] == outs[1]
     assert all(math.isfinite(v) for v in outs[0].values())
+
+
+def test_chip_smoke_field_setup_and_surgery_rehearsal(tmp_path, monkeypatch):
+    """chip_smoke.py's field_setup, surgery and surgery_seq_step phases at
+    the CPU-sized scale through the functions the script runs on the card:
+    the checks of each phase hold, the field set-up leaves the scene's
+    parameters as they were, the surgery's template carries both labels
+    and every host SDF query went to the native engine, the recorded
+    kernel inputs cover every first_k and scatter call of the surgery (the
+    extraction's two compactions and corner count, auto_normals' sums),
+    and a seq step on it (on a copy of the parameters) gives finite losses
+    and covered pixels."""
+    import chip_smoke
+    from d3human_tpu_torch.ops import compaction, scatter
+    from d3human_tpu_torch.train.optim import named_leaves
+
+    sc = chip_smoke.build_scene("tiny", "cpu", seed_steps=50)
+    chip_smoke.add_seq(sc, "tiny")
+    before = {k: v.clone() for k, v in named_leaves(sc["params"])}
+    fs = chip_smoke.phase_field_setup(sc, "tiny", steps=3)
+    assert fs["chunked_forward_rel"] <= 1e-6
+    assert fs["chunked_grad_rel_l2"] <= 1e-5
+    assert fs["points"] > fs["sdf_chunk"]
+    assert fs["pretrain_sdf_loss"][1] < fs["pretrain_sdf_loss"][0]
+    plain = {"first_k_indices": 0, "coo_scatter_add": 0}
+
+    def counted(kernel, fn):
+        def run(*args, **kw):
+            plain[kernel] += 1
+            return fn(*args, **kw)
+        return run
+
+    # on CPU tensors the wrappers run their plain versions
+    monkeypatch.setattr(compaction, "first_k_plain", counted(
+        "first_k_indices", compaction.first_k_plain))
+    monkeypatch.setattr(scatter, "coo_scatter_add_plain", counted(
+        "coo_scatter_add", scatter.coo_scatter_add_plain))
+    sur = chip_smoke.phase_surgery(sc, str(tmp_path / "surgery"))
+    monkeypatch.undo()
+    template = sur.pop("template")
+    inputs = sur.pop("inputs")
+    assert {k: sum(s["calls"] for s in v.values())
+            for k, v in inputs.items()} == plain
+    assert min(plain.values()) > 0
+    sites = {k: sorted(site.split(":")[0] for site in v)
+             for k, v in inputs.items()}
+    assert sites == {"first_k_indices": ["marching_tets.py"] * 2,
+                     "coo_scatter_add": ["marching_tets.py", "mesh_ops.py"]}
+    for s in inputs["first_k_indices"].values():
+        mask, k, fill = s["args"]
+        assert fill == mask.numel() and k > 0
+    for site, s in inputs["coo_scatter_add"].items():
+        r = chip_smoke.check_scatter_values(site, *s["args"])
+        assert r["bitwise"] and r["kernel_vs_float64"] <= r["float32_bound_max"]
+    assert template.f.shape[0] < 1 << 20
+    assert len(template.body_vidx) > 0 and len(template.cloth_vidx) > 0
+    ssc = chip_smoke.surgery_scene(sc, template)
+    state, m = chip_smoke.stage_step_fn(ssc, "seq")(
+        ssc["seq_state"], ssc["target"], torch.Generator().manual_seed(0))
+    assert state.step == 1
+    chip_smoke.check_step_metrics("seq", chip_smoke.scalars(m), "surgery")
+    for k, v in named_leaves(sc["params"]):
+        assert torch.equal(v, before[k]), k

@@ -20,6 +20,26 @@ def to_np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
+def load_jax_engine():
+    """(module, library path): the JAX package's mesh-SDF engine, loaded
+    from its committed ``libmeshsdf.so`` as it is. The package's
+    ``build_lib`` rebuilds that file in place whenever its mtime is older
+    than the source's; loading the library directly never does."""
+    from pathlib import Path
+
+    import d3human_tpu.native.meshsdf as J
+
+    lib = Path(J.__file__).with_name("libmeshsdf.so")
+    if J._lib is None:
+        orig = J.build_lib
+        J.build_lib = lambda name, force=False: str(lib)
+        try:
+            J._load()
+        finally:
+            J.build_lib = orig
+    return J, lib
+
+
 def jax_small():
     """(cfg, scene, model, perceptual, perc_params, params, target) with
     init_shading off, as the port runs it."""
