@@ -100,6 +100,36 @@ object per line:
   profile      one more seq step under torch.profiler
   seq_knn      the seq step's two nearest-neighbour searches alone (the
                collision's and the skinning-weight transfer's), timed
+  gt_targets   the synthetic ground truth at 1080^2 (the scenes above are
+               freed first): frame_target of 4 frames through the oracle
+               rasterizer (plain PyTorch by design: no kernel), ms per
+               frame and peak memory; the oracle's tri_id against the
+               binned rasterizer's (the resolve kernel) on frame 0's body:
+               coverage equal, ids equal on >= 99.9 % of covered pixels;
+               CachedTargets against frame_target per buffer, abs 2e-3
+  cli          the port's CLI in this process, main(argv): --synthetic
+               --stages split_smpl,init,split,seq --device cuda on a copy
+               of configs/f3c_synth_full20.json at full width with the
+               cuts of CLI_SCALES["full"] (sdf_mlp_pretrain_steps 3000 ->
+               100, sdf_deform_pretrain_steps 1000 -> 50), 4 synthetic
+               frames and --iters-scale 0.002 (split_smpl 2, init 4,
+               split 2, seq 2 + 3 x 2 steps), into a fresh out dir under
+               CLI_DIR; kernel counts reset just before and read just
+               after. Per stage: steps, seconds, step ms (CUDA events),
+               ground-truth render ms, peak memory, kernel launches and
+               calls, the logged losses (all finite) and validation
+               metrics; PARITY.json; final_metrics.json of split_smpl,
+               init and split, every seq frame's delta and ply, [done], and
+               launches of first_k, the scatter and the resolve. Then the
+               same command with --resume: no training step, the close
+               hole and the merge reused, PARITY.json's entries kept.
+               The first run's kernel calls are recorded by call site
+               (the biggest call of each site; the resolve's by stage)
+  cli_kernels  first_k and the scatter at each recorded call site's
+               biggest call and the resolve at each stage's biggest
+               binning (the seq stage's on the seq template), each held
+               to its plain version as in surgery_kernels; reported under
+               "cli" in each row
 
 Then the kernel table, the nvidia-smi line, and the result line
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
@@ -115,6 +145,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -502,8 +533,11 @@ def check_scatter(what: str, idx, live, C: int, rows_out: int, srt: bool,
                   gen, faster: bool = True) -> dict:
     """The scatter at one shape on random rows (zero where ``live`` is
     false): deterministic, within rel 1e-5 / abs 1e-6 of the plain version
-    and 1e-4 of ``index_add_``, two launches a call, and with ``faster``
-    faster than the library; its times, parts and bound."""
+    and within rel 1e-4 / abs 1e-4 of the float64 sum, two launches a
+    call, and with ``faster`` faster than ``index_add_``; its times, parts
+    and bound. ``index_add_``'s own distance to the float64 sum is
+    reported: its atomics add a hot row's millions of terms in another
+    order."""
     import torch
 
     from d3human_tpu_torch.ops import scatter
@@ -535,10 +569,16 @@ def check_scatter(what: str, idx, live, C: int, rows_out: int, srt: bool,
         return torch.zeros((rows_out + 1, C), device=dev).index_add_(
             0, didx, vals)[:rows_out]
 
-    ref = library()
-    err_lib = (got - ref).abs()
-    check(bool((err_lib <= 1e-4 + 1e-4 * ref.abs()).all()),
-          f"scatter {what}: against index_add_ {float(err_lib.max())}")
+    def row_sum(v):
+        return torch.zeros((rows_out + 1, C), dtype=v.dtype,
+                           device=dev).index_add_(0, didx, v)[:rows_out]
+
+    exact = row_sum(vals.double())
+    k = torch.bincount(didx, minlength=rows_out + 1)[:rows_out]
+    e_kernel = (got.double() - exact).abs()
+    check(bool((e_kernel <= 1e-4 + 1e-4 * exact.abs()).all()),
+          f"scatter {what}: {float(e_kernel.max())} from the float64 sum")
+    e_library = (library().double() - exact).abs()
     # the parts, on the wrapper's own calls; a sorted call has no key
     # preparation and no sort
     parts = parts_ms(lambda: scatter.coo_scatter_add(
@@ -550,6 +590,9 @@ def check_scatter(what: str, idx, live, C: int, rows_out: int, srt: bool,
         call=what, N=N, C=C, out_rows=rows_out, sorted=srt,
         bound_ms=b, bound_by=by, launches_per_call=per_call,
         max_abs_err=float(err.max()), bitwise=torch.equal(got, want),
+        kernel_vs_float64=float(e_kernel.max()),
+        library_vs_float64=float(e_library.max()),
+        max_rows_per_out_row=int(k.max()),
         ms=cuda_ms(lambda: scatter.coo_scatter_add(idx, vals, rows_out,
                                                    sorted_idx=srt)),
         # device time alone (CUDA graph replays)
@@ -1264,53 +1307,91 @@ def consistent_winding(faces) -> float:
 
 
 @contextlib.contextmanager
-def recording_kernel_inputs():
-    """While active, the names the extraction (``first_k_indices``, the
-    corner count's ``coo_scatter_add``) and the mesh ops (``auto_normals``'
-    ``segment_add_rows``) call the kernels by are bound to wrappers that
-    record each call and pass it on. Yields {kernel: {call site: {"calls":
-    n, "args": the site's biggest call}}}: first_k's (mask, k, fill) with
-    the largest (k, n), the scatter's (idx, vals, out_rows) with the most
-    values."""
-    from d3human_tpu_torch.ops import marching_tets as mt
-    from d3human_tpu_torch.ops import mesh_ops
+def recording_kernel_inputs(tag=None):
+    """While active, every call of the kernels' wrappers (first_k_indices,
+    coo_scatter_add, resolve_tiles_indexed) is recorded by call site,
+    wherever the caller took the name from (``sys.monitoring`` on the
+    wrappers' code, nothing patched). A scatter call's site is the first
+    caller outside ``ops/scatter.py`` and torch (``mesh_ops.py:42`` for
+    the normals' segment add), except in a backward, whose site is the
+    backward's own line; a resolve call's site gains ``tag()`` (the stage)
+    and ``peel`` when it has a floor. Yields {kernel: {site: {"calls": n,
+    "args": a copy of the site's biggest call}}}: first_k's (mask, k,
+    fill) with the largest (k, n), the scatter's (idx, vals, out_rows,
+    sorted) with the most values, the resolve's (rows, all_faces, ntx,
+    floor, counts, global_range) with the largest (F, slots); a kernel
+    never called has no key."""
+    import torch
 
-    seen = {"first_k_indices": {}, "coo_scatter_add": {}}
+    from d3human_tpu_torch.ops import compaction, raster_resolve, scatter
 
-    def keep(kernel, size, args):
-        f = sys._getframe(2)                  # the wrapper's caller
-        site = f"{os.path.basename(f.f_code.co_filename)}:{f.f_lineno}"
-        s = seen[kernel].setdefault(site, dict(calls=0, size=None))
+    mon = sys.monitoring
+    tool = next(i for i in range(6) if mon.get_tool(i) is None)
+    seen = {}
+    codes = {compaction.first_k_indices.__code__: "first_k_indices",
+             scatter.coo_scatter_add.__code__: "coo_scatter_add",
+             raster_resolve.resolve_tiles_indexed.__code__:
+                 "resolve_tiles_indexed"}
+    skip = (os.path.abspath(scatter.__file__),
+            os.path.dirname(os.path.abspath(torch.__file__)))
+
+    def where(f):
+        return f"{os.path.basename(f.f_code.co_filename)}:{f.f_lineno}"
+
+    def site_of(kernel, caller):
+        if kernel != "coo_scatter_add" or caller.f_code.co_name == "backward":
+            return where(caller)
+        f = caller
+        while f is not None and os.path.abspath(
+                f.f_code.co_filename).startswith(skip):
+            f = f.f_back
+        return where(f if f is not None else caller)
+
+    def copy(x):
+        if isinstance(x, tuple):
+            return tuple(copy(y) for y in x)
+        return x.detach().clone() if isinstance(x, torch.Tensor) else x
+
+    def on_start(code, offset):
+        kernel = codes.get(code)
+        if kernel is None:
+            return
+        frame = sys._getframe(1)               # the wrapper's own frame
+        a = frame.f_locals
+        site = site_of(kernel, frame.f_back)
+        if kernel == "first_k_indices":
+            size, args = (a["k"], a["mask"].numel()), (
+                a["mask"], a["k"], a["fill_value"])
+        elif kernel == "coo_scatter_add":
+            size, args = a["vals"].numel(), (
+                a["idx"], a["vals"], a["out_rows"], a["sorted_idx"])
+        else:
+            site += (f" {tag()}" if tag else "") + (
+                " peel" if a["floor"] is not None else "")
+            size, args = (a["rows"].shape[0], a["all_faces"].numel()), (
+                a["rows"], a["all_faces"], a["ntx"], a["floor"],
+                a["counts"], a["global_range"])
+        s = seen.setdefault(kernel, {}).setdefault(site, dict(calls=0,
+                                                             size=None))
         s["calls"] += 1
         if s["size"] is None or size > s["size"]:
-            s["size"], s["args"] = size, args
+            s["size"], s["args"] = size, copy(args)
 
-    def first_k(mask, k, fill_value, fn=mt.first_k_indices):
-        keep("first_k_indices", (k, mask.numel()), (mask, k, fill_value))
-        return fn(mask, k, fill_value)
-
-    def corner_count(idx, vals, out_rows, fn=mt.coo_scatter_add):
-        keep("coo_scatter_add", vals.numel(), (idx, vals.detach(), out_rows))
-        return fn(idx, vals, out_rows)
-
-    def segment_add(vals, idx, out_rows, fn=mesh_ops.segment_add_rows):
-        keep("coo_scatter_add", vals.numel(), (idx, vals.detach(), out_rows))
-        return fn(vals, idx, out_rows)
-
-    patches = [(mt, "first_k_indices", first_k),
-               (mt, "coo_scatter_add", corner_count),
-               (mesh_ops, "segment_add_rows", segment_add)]
-    saved = [(m, name, getattr(m, name)) for m, name, _ in patches]
-    for m, name, fn in patches:
-        setattr(m, name, fn)
+    mon.use_tool_id(tool, "chip_smoke")
+    mon.register_callback(tool, mon.events.PY_START, on_start)
+    for code in codes:
+        mon.set_local_events(tool, code, mon.events.PY_START)
     try:
         yield seen
     finally:
-        for m, name, fn in saved:
-            setattr(m, name, fn)
+        for code in codes:
+            mon.set_local_events(tool, code, 0)
+        mon.register_callback(tool, mon.events.PY_START, None)
+        mon.free_tool_id(tool)
 
 
-def check_scatter_values(what: str, idx, vals, rows_out: int) -> dict:
+def check_scatter_values(what: str, idx, vals, rows_out: int,
+                         srt: bool = False) -> dict:
     """The scatter on the rows a call site really summed: within rel 1e-5
     / abs 1e-6 of the plain version (the kernels' order of additions), and
     within the error bound of a float32 sum of k terms in any order,
@@ -1323,8 +1404,8 @@ def check_scatter_values(what: str, idx, vals, rows_out: int) -> dict:
 
     from d3human_tpu_torch.ops import scatter
 
-    got = scatter.coo_scatter_add(idx, vals, rows_out)
-    want = scatter.coo_scatter_add_plain(idx, vals, rows_out, False)
+    got = scatter.coo_scatter_add(idx, vals, rows_out, sorted_idx=srt)
+    want = scatter.coo_scatter_add_plain(idx, vals, rows_out, srt)
     err = (got - want).abs()
     check(bool((err <= 1e-6 + 1e-5 * want.abs()).all()),
           f"scatter {what} (recorded rows): max err {float(err.max())}")
@@ -1353,32 +1434,77 @@ def check_scatter_values(what: str, idx, vals, rows_out: int) -> dict:
                 float32_bound_max=float(bound.max()))
 
 
+def check_recorded(label: str, inputs: dict, gen) -> dict:
+    """The kernels at inputs recorded by ``recording_kernel_inputs``,
+    outside the counted runs: first_k at each call site's biggest call
+    (exactly equal to its plain version), the scatter at each site's
+    biggest call on the site's indices with random rows, as at every other
+    shape, and on its recorded rows, the resolve at each site's biggest
+    binning (exactly equal to the plain full scan, with its floor where it
+    had one); timed beside the library and not held to it. Returns
+    {kernel: {site: report}}."""
+    import torch
+
+    from d3human_tpu_torch.ops.rasterizer import Binned
+
+    out = {"first_k_indices": {}, "coo_scatter_add": {},
+           "resolve_tiles_indexed": {}}
+    for site, s in inputs.get("first_k_indices", {}).items():
+        mask, k, fill = s["args"]
+        check(fill == mask.numel(), f"first_k at {site}: fill {fill}")
+        out["first_k_indices"][site] = check_first_k(
+            f"{label} {site}", mask, k, faster=False)
+    for site, s in inputs.get("coo_scatter_add", {}).items():
+        idx, vals, out_rows, srt = s["args"]
+        what = f"{label} {site}"
+        r = check_scatter(what, idx, torch.ones(
+            (idx.numel(),), dtype=torch.bool, device=idx.device),
+            vals.shape[1], out_rows, srt, gen, faster=False)
+        r["recorded_rows"] = check_scatter_values(what, idx, vals, out_rows,
+                                                  srt)
+        out["coo_scatter_add"][site] = r
+    for site, s in inputs.get("resolve_tiles_indexed", {}).items():
+        rows, all_faces, ntx, floor, counts, global_range = s["args"]
+        NT = all_faces.shape[0]
+        binned = Binned(rows=rows, all_faces=all_faces, counts=counts,
+                        global_range=global_range, starts=None, n_big=None,
+                        grid=(NT // ntx, ntx, NT))
+        _, r = check_resolve(binned, rows.shape[0] - 1, floor=floor)
+        out["resolve_tiles_indexed"][site] = dict(r, faces=rows.shape[0] - 1)
+    return out
+
+
+def add_recorded_rows(rows: list, key: str, got: dict) -> None:
+    """Each kernel row gains ``key``: {site: the numbers at the site's
+    recorded call} (the resolve's peel sites in the peel row)."""
+    by_name = {r["name"]: r for r in rows}
+    by_name["first_k_indices"][key] = {
+        site: dict(kernel_summary(r), shape=f"n={r['n']} k={r['k']}")
+        for site, r in got["first_k_indices"].items()}
+    by_name["coo_scatter_add"][key] = {
+        site: dict(kernel_summary(r), shape=(
+            f"N={r['N']} C={r['C']} out={r['out_rows']}"))
+        for site, r in got["coo_scatter_add"].items()}
+    for name, peel in (("resolve_tiles", False), ("resolve_tiles_peel", True)):
+        res = {site: dict(kernel_summary(r), library_ms=None, shape=(
+            f"F={r['faces']} NT={r['NT']} M={r['M']} "
+            f"live={r['live_slots']}"))
+            for site, r in got["resolve_tiles_indexed"].items()
+            if site.endswith(" peel") == peel}
+        if res:
+            by_name[name][key] = res
+
+
 def phase_surgery_kernels(rows: list, inputs: dict, ssc: dict) -> None:
-    """The kernels at the surgery's own inputs, outside the counted runs:
-    first_k and the scatter at each call site's biggest recorded call (the
-    scatter on the site's indices with random rows, as at every other
-    shape, and on its recorded rows), the resolve on the surgery
-    template's binning at the seq step's resolution (oversize faces in the
-    shared list); each held to its plain version as in the kernels phase,
-    timed beside the library and not held to it. Adds to those kernels'
-    rows a ``surgery`` entry (the resolve's: ``surgery_seq_step``)."""
+    """The kernels at the surgery's own inputs (``check_recorded``), and
+    the resolve on the surgery template's binning at the seq step's
+    resolution (oversize faces in the shared list), held to its plain
+    version as in the kernels phase. Adds to those kernels' rows a
+    ``surgery`` entry (the resolve's: ``surgery_seq_step``)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(3)
-    fk, sa = {}, {}
-    for site, s in inputs["first_k_indices"].items():
-        mask, k, fill = s["args"]
-        check(fill == mask.numel(), f"first_k at {site}: fill {fill}")
-        fk[site] = check_first_k(f"surgery {site}", mask, k, faster=False)
-    for site, s in inputs["coo_scatter_add"].items():
-        idx, vals, out_rows = s["args"]
-        what = f"surgery {site}"
-        sa[site] = check_scatter(
-            what, idx, torch.ones((idx.numel(),), dtype=torch.bool,
-                                  device=idx.device),
-            vals.shape[1], out_rows, False, gen, faster=False)
-        sa[site]["recorded_rows"] = check_scatter_values(what, idx, vals,
-                                                         out_rows)
+    got = check_recorded("surgery", inputs, gen)
     seq = seq_kernel_inputs(ssc)
     F = ssc["seq_template"].f.shape[0]
     stats = binning_stats(seq["binned"], seq["v_clip"], ssc["seq_template"].f,
@@ -1388,19 +1514,37 @@ def phase_surgery_kernels(rows: list, inputs: dict, ssc: dict) -> None:
          scatter_tolerance="rel 1e-5 abs 1e-6",
          calls_by_site={k: {site: s["calls"] for site, s in v.items()}
                         for k, v in inputs.items()},
-         first_k=fk, scatter=sa, resolve=dict(rs, faces=F, binning=stats))
+         first_k=got["first_k_indices"], scatter=got["coo_scatter_add"],
+         resolve=dict(rs, faces=F, binning=stats))
+    add_recorded_rows(rows, "surgery", got)
     by_name = {r["name"]: r for r in rows}
-    by_name["first_k_indices"]["surgery"] = {
-        site: dict(kernel_summary(r), shape=f"n={r['n']} k={r['k']}")
-        for site, r in fk.items()}
-    by_name["coo_scatter_add"]["surgery"] = {
-        site: dict(kernel_summary(r), shape=(
-            f"N={r['N']} C={r['C']} out={r['out_rows']}"))
-        for site, r in sa.items()}
     by_name["resolve_tiles"]["surgery_seq_step"] = dict(
         kernel_summary(rs), library_ms=None,
         shape=(f"NT={rs['NT']} M={rs['M']} live={rs['live_slots']}"),
         n_global=stats["n_global"], longest_list=stats["longest_list"])
+
+
+def phase_cli_kernels(rows: list, inputs: dict) -> None:
+    """The kernels at the CLI run's own inputs (``check_recorded``: every
+    first_k and scatter call site's biggest call of the run, each stage's
+    biggest resolve call, the seq stage's on the seq template's binning).
+    Adds to those kernels' rows a ``cli`` entry."""
+    import torch
+
+    check(set(inputs) == {"first_k_indices", "coo_scatter_add",
+                          "resolve_tiles_indexed"},
+          f"cli_kernels: recorded calls of {sorted(inputs)}")
+    got = check_recorded("cli", inputs, torch.Generator(
+        device="cuda").manual_seed(4))
+    check(any(site.endswith(" seq") for site in got["resolve_tiles_indexed"]),
+          "cli_kernels: no resolve call of the seq stage")
+    emit("cli_kernels", exact_first_k_and_resolve=True,
+         scatter_tolerance="rel 1e-5 abs 1e-6",
+         calls_by_site={k: {site: s["calls"] for site, s in v.items()}
+                        for k, v in inputs.items()},
+         first_k=got["first_k_indices"], scatter=got["coo_scatter_add"],
+         resolve=got["resolve_tiles_indexed"])
+    add_recorded_rows(rows, "cli", got)
 
 
 def phase_surgery(sc: dict, out_dir: str) -> dict:
@@ -1513,6 +1657,390 @@ def one_more_step(sc: dict, stage: str) -> None:
         sc[key], sc["target"], torch.Generator(device="cuda").manual_seed(1))
 
 
+# ---------------------------------------------------------------- the CLI
+
+GT_SCALES = {"full": dict(res=(1080, 1080), frames=4),
+             "tiny": dict(res=(48, 48), frames=2)}
+# the CLI phase: a copy of the source config with the stated cuts (keys of
+# its sections; a section's key wins over a flat key), the
+# synthetic capture's frame count, --iters-scale, and the Chamfer samples
+# of PARITY.json (None: the CLI's own)
+CLI_SCALES = {
+    "full": dict(config="configs/f3c_synth_full20.json", frames=4,
+                 iters_scale=0.002,
+                 cuts={"stages": {"sdf_mlp_pretrain_steps": 100,
+                                  "sdf_deform_pretrain_steps": 50}},
+                 parity_samples=None),
+    "tiny": dict(config="configs/smoke.json", frames=2, iters_scale=0.002,
+                 cuts={"stages": {"sdf_mlp_pretrain_steps": 100,
+                                  "sdf_deform_pretrain_steps": 20},
+                       "geometry": {"grid_crop": 0.1},
+                       "render": {"train_res": [48, 48],
+                                  "texture_res": [48, 48]}},
+                 parity_samples=2000),
+}
+CLI_DIR = "d3human_tpu_torch/build/smoke_cli"
+CLI_STAGE_DIRS = {"split_smpl": "split_smpl", "init": "init",
+                  "split": "split_cloth0", "seq": "seq"}
+GT_TOL = 2e-3            # CachedTargets against frame_target (fp16)
+
+
+def phase_gt_targets(scale: str, device: str) -> dict:
+    """The synthetic ground truth: ``frame_target`` of every frame through
+    the oracle rasterizer (ms per frame, peak memory); the oracle's
+    ``tri_id`` against the binned rasterizer's (the resolve kernel on the
+    card) on frame 0's clip-space body: coverage equal, ids equal on at
+    least 99.9 % of the covered pixels (the kernel's keys quantize depth,
+    so near-ties at shared edges may break the other way); the fp16
+    ``CachedTargets`` against ``frame_target`` per buffer within
+    ``GT_TOL``."""
+    import numpy as np
+    import torch
+
+    from d3human_tpu_torch.data.synthetic import CachedTargets, make_scene
+    from d3human_tpu_torch.ops.rasterizer import (
+        rasterize, rasterize_bruteforce, xfm_points,
+    )
+
+    s = GT_SCALES[scale]
+    scene = make_scene(s["res"], n_frames=s["frames"], device=device)
+    scene.frame_target(0)                                  # warm-up
+    reset_peak(device)
+    frame_ms = [timed(device, lambda i=i: scene.frame_target(i))[1] * 1e3
+                for i in range(s["frames"])]
+    peak = peak_gib(device)
+
+    pp = scene.pose_params
+    with torch.no_grad():
+        v, _, _ = scene.model.forward(
+            betas=pp["shape"], root_pose=pp["root_pose"][:1],
+            body_pose=pp["body_pose"][:1], transl=pp["trans"][:1])
+        faces = torch.as_tensor(np.asarray(scene.model.faces),
+                                dtype=torch.int32, device=device)
+        v_clip = xfm_points(v[0], scene.mvp)
+        live = torch.ones((faces.shape[0],), dtype=torch.bool, device=device)
+        oracle = rasterize_bruteforce(v_clip, faces, live, s["res"])
+        binned = rasterize(v_clip, faces, live, s["res"])
+    cov_o, cov_b = oracle.tri_id > 0, binned.tri_id > 0
+    n_cov = int(cov_o.sum())
+    n_diff = int((cov_o & (oracle.tri_id != binned.tri_id)).sum())
+    check(bool(torch.equal(cov_o, cov_b)),
+          f"gt_targets: coverage differs on "
+          f"{int((cov_o != cov_b).sum())} pixels")
+    check(n_cov > 0 and n_diff <= 1e-3 * n_cov,
+          f"gt_targets: tri_id differs on {n_diff} of {n_cov} pixels")
+
+    reset_peak(device)
+    cache, build_s = timed(device, lambda: CachedTargets(scene))
+    cache_peak = peak_gib(device)
+    err = {}
+    for i in range(s["frames"]):
+        want, got = scene.frame_target(i), cache.frame_target(i)
+        for k, w in want.items():
+            if isinstance(w, torch.Tensor) and w.dim() == 3:
+                e = float((got[k] - w).abs().max())
+                err[k] = max(err.get(k, 0.0), e)
+        check(got["frame_idx"] == want["frame_idx"] == i,
+              f"gt_targets: frame index {got['frame_idx']}")
+    check(max(err.values()) <= GT_TOL,
+          f"gt_targets: cache against frame_target {err}")
+    out = dict(resolution=list(s["res"]), frames=s["frames"],
+               faces=int(faces.shape[0]), frame_ms=frame_ms,
+               mean_frame_ms=sum(frame_ms) / len(frame_ms),
+               peak_mem_gib=peak, covered_pixels=n_cov,
+               tri_id_differs=n_diff, coverage_equal=True,
+               cache_build_s=build_s,
+               cache_mib=cache._cache.numel() * 2 / 2 ** 20,
+               cache_peak_mem_gib=cache_peak, cache_max_abs_err=err,
+               cache_tolerance=f"abs {GT_TOL}")
+    emit("gt_targets", **out)
+    return out
+
+
+class _Tee:
+    """Standard output kept as it goes by."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, text):
+        self.lines.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.lines)
+
+
+@contextlib.contextmanager
+def instrumented_cli(device: str):
+    """The CLI module with its stage drivers, its step builder and the
+    synthetic ground truth wrapped: per stage the seconds, the peak memory,
+    the kernel counts, every step's and every ground-truth render's time
+    (CUDA events on the card) and the number of steps. Yields (module,
+    record); the wrappers are removed on exit."""
+    import torch
+
+    import d3human_tpu_torch.train_d3h as cli
+    from d3human_tpu_torch.data.synthetic import SyntheticScene
+
+    cuda = torch.device(device).type == "cuda"
+    rec = {"stages": {}, "current": None, "steps": 0, "peak_gib": None}
+
+    def keep_peak():
+        p = peak_gib(device)
+        if p is not None:
+            rec["peak_gib"] = max(rec["peak_gib"] or 0.0, p)
+
+    def clock():
+        if cuda:
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            return e
+        return time.perf_counter()
+
+    def stage_rec():
+        return rec["stages"].setdefault(rec["current"] or "startup", dict(
+            steps=[], gt=[]))
+
+    def timing(fn, key, count=False):
+        def run(*args, **kw):
+            t0 = clock()
+            out = fn(*args, **kw)
+            stage_rec()[key].append((t0, clock()))
+            if count:
+                rec["steps"] += 1
+            return out
+        return run
+
+    def driver(fn, name_of):
+        def run(*args, **kw):
+            rec["current"] = name_of(args)
+            r = stage_rec()
+            sync(device)
+            keep_peak()
+            reset_peak(device)
+            c0 = read_counts()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            sync(device)
+            r["seconds"] = time.perf_counter() - t0
+            r["peak_mem_gib"] = peak_gib(device)
+            keep_peak()
+            c1 = read_counts()
+            r["launches"] = {k: c1[k] - c0[k] for k in c1 if k != "calls"}
+            r["calls"] = {k: c1["calls"][k] - c0["calls"][k]
+                          for k in c1["calls"]}
+            rec["current"] = None
+            return out
+        return run
+
+    orig = (cli.make_train_step, cli.run_stage, cli.run_seq_stage,
+            SyntheticScene.frame_target)
+    cli.make_train_step = lambda *a, **kw: timing(orig[0](*a, **kw), "steps",
+                                                   count=True)
+    cli.run_stage = driver(orig[1], lambda a: a[0])
+    cli.run_seq_stage = driver(orig[2], lambda a: "seq")
+    SyntheticScene.frame_target = timing(orig[3], "gt")
+    try:
+        yield cli, rec
+    finally:
+        (cli.make_train_step, cli.run_stage, cli.run_seq_stage,
+         SyntheticScene.frame_target) = orig
+
+
+def _ms(device, pairs) -> list:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in pairs]
+    return [(b - a) * 1e3 for a, b in pairs]
+
+
+def run_cli(cli, argv: list, parity_samples) -> str:
+    """``main(argv)`` in this process, its standard output kept."""
+    saved = cli.PARITY_SAMPLES
+    if parity_samples is not None:
+        cli.PARITY_SAMPLES = parity_samples
+    tee = _Tee(sys.stdout)
+    try:
+        with contextlib.redirect_stdout(tee):
+            rc = cli.main(argv)
+    finally:
+        cli.PARITY_SAMPLES = saved
+    check(rc == 0, f"cli: main returned {rc}")
+    return tee.text()
+
+
+def _read_jsonl(path: str) -> list:
+    with open(path) as fh:
+        return [json.loads(line) for line in fh if line.strip()]
+
+
+def phase_cli(scale: str, device: str, root: str) -> dict:
+    """The port's CLI in this process, ``main(argv)`` with ``--synthetic
+    --stages split_smpl,init,split,seq --device <device>`` on a copy of
+    the scale's config with its cuts, into a fresh out dir under
+    ``root``; then once more with ``--resume``, which must run no step,
+    reuse the host surgery's outputs and keep PARITY.json's entries.
+    Returns what it emits (the first run's kernel launches and calls
+    among it), the out dir and the first run's kernel inputs by call site
+    (``recording_kernel_inputs``)."""
+    import shutil
+
+    from d3human_tpu_torch.config import load_config
+
+    s = CLI_SCALES[scale]
+    cuda = device == "cuda"
+    here = os.path.dirname(os.path.abspath(__file__))
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    src_path = os.path.join(here, s["config"])
+    with open(src_path) as fh:
+        cfg_json = json.load(fh)
+    cuts = []
+    for sec, vals in s["cuts"].items():
+        cfg_json.setdefault(sec, {}).update(vals)
+        cuts += [(sec, k) for k in vals]
+    cfg_path = os.path.join(root, "config.json")
+    with open(cfg_path, "w") as fh:
+        json.dump(cfg_json, fh, indent=1)
+    cfg, src_cfg = load_config(cfg_path), load_config(src_path)
+    cuts = {f"{sec}.{k}": [getattr(getattr(c, sec), k)
+                           for c in (src_cfg, cfg)] for sec, k in cuts}
+    out_dir = os.path.join(root, "out")
+    argv = ["--config", cfg_path, "--out-dir", out_dir, "--synthetic",
+            "--synthetic-frames", str(s["frames"]), "--stages",
+            "split_smpl,init,split,seq", "--iters-scale",
+            str(s["iters_scale"]), "--device", device]
+
+    def n(x):
+        return max(2, int(x * s["iters_scale"]))
+
+    n_seq = min(s["frames"], cfg.stages.seq_max_frames)
+    expect = {"split_smpl": n(cfg.stages.split_smpl_epoch),
+              "init": n(cfg.stages.init_epoch),
+              "split": n(cfg.stages.split_epoch),
+              "seq": n(cfg.stages.seq_iters_first)
+              + (n_seq - 1) * n(cfg.stages.seq_iters_rest)}
+    with instrumented_cli(device) as (cli, rec), recording_kernel_inputs(
+            tag=lambda: rec["current"] or "between stages") as inputs:
+        sync(device)
+        reset_peak(device)
+        reset_counts()
+        t0 = time.perf_counter()
+        text = run_cli(cli, argv, s["parity_samples"])
+        sync(device)
+        total_s = time.perf_counter() - t0
+        counts = read_counts()
+        phase_peak = max(rec["peak_gib"] or 0.0, peak_gib(device) or 0.0) \
+            if cuda else None
+        stages = {}
+        for name, r in rec["stages"].items():
+            steps, gt = _ms(device, r["steps"]), _ms(device, r["gt"])
+            stages[name] = dict(
+                iterations=len(steps), seconds=r.get("seconds"),
+                mean_step_ms=sum(steps) / len(steps) if steps else None,
+                step_ms=steps, gt_renders=len(gt),
+                mean_gt_ms=sum(gt) / len(gt) if gt else None,
+                peak_mem_gib=r.get("peak_mem_gib"),
+                launches=r.get("launches"), calls=r.get("calls"))
+        first_steps = rec["steps"]
+    check("[done]" in text.split("\n"), "cli: no [done] line")
+    for name, want in expect.items():
+        got = stages.get(name, {}).get("iterations")
+        check(got == want, f"cli: {name} ran {got} steps, expected {want}")
+    join = os.path.join
+    for name, d in CLI_STAGE_DIRS.items():
+        lines = _read_jsonl(join(out_dir, d, "loss_log", "scalars.jsonl"))
+        tot = [ln for ln in lines if "total" in ln]
+        check(len(tot) > 0, f"cli: {name} logged no loss")
+        for ln in lines:
+            for k, v in ln.items():
+                if "loss" in k or k == "total":
+                    check(math.isfinite(v), f"cli: {name} {k} = {v}")
+        stages[name]["losses_logged"] = tot[-1]
+        stages[name]["validation"] = [
+            {k: v for k, v in ln.items() if k.startswith("val_")}
+            for ln in lines if any(k.startswith("val_") for k in ln)]
+    for name in ("split_smpl", "init", "split"):
+        fm = join(out_dir, CLI_STAGE_DIRS[name], "validate",
+                  "final_metrics.json")
+        check(os.path.exists(fm), f"cli: no {fm}")
+    for f in range(n_seq):
+        for p in (join(out_dir, "seq", "delta", f"{f}.npz"),
+                  join(out_dir, "seq", f"fine_all_{f}.ply")):
+            check(os.path.exists(p), f"cli: no {p}")
+    with open(join(out_dir, "PARITY.json")) as fh:
+        parity = json.load(fh)["stages"]
+    check(set(parity) >= {"split_smpl", "init", "split",
+                          "seq_template_frame0", "seq"},
+          f"cli: PARITY.json holds {sorted(parity)}")
+    launches = {k: v for k, v in counts.items() if k != "calls"}
+    for k in ("first_k_indices", "coo_scatter_add", "resolve_tiles"):
+        check(not cuda or launches[k] > 0,
+              f"cli: {k} never launched ({launches})")
+    # every counted call went through a recorded call site (a resolve call
+    # is one launch)
+    recorded = {k: sum(r["calls"] for r in v.values())
+                for k, v in inputs.items()}
+    counted = dict(first_k_indices=counts["calls"]["first_k_indices"],
+                   coo_scatter_add=counts["calls"]["coo_scatter_add"],
+                   resolve_tiles_indexed=launches["resolve_tiles"]
+                   + launches["resolve_tiles_peel"])
+    check(not cuda or recorded == counted,
+          f"cli: recorded calls {recorded}, counted {counted}")
+    # the copies of the recorded calls stay on the device during the run,
+    # inside the peaks above
+    recorded_gib = sum(
+        x.numel() * x.element_size() for v in inputs.values()
+        for r in v.values() for x in _tensors(r["args"])) / 2 ** 30
+
+    # ---- the same command with --resume: every stage is complete
+    with instrumented_cli(device) as (cli, rec):
+        reset_counts()
+        t0 = time.perf_counter()
+        text_r = run_cli(cli, argv + ["--resume"], s["parity_samples"])
+        resume_s = time.perf_counter() - t0
+        resume_counts = read_counts()
+        check(rec["steps"] == 0,
+              f"cli --resume: {rec['steps']} training steps ran")
+    lines_r = text_r.split("\n")
+    check("[done]" in lines_r, "cli --resume: no [done] line")
+    for what in ("[close_hole] resume: reusing", "[merge] resume: reusing"):
+        check(any(ln.startswith(what) for ln in lines_r),
+              f"cli --resume: no '{what}' line")
+    with open(join(out_dir, "PARITY.json")) as fh:
+        parity_r = json.load(fh)["stages"]
+    check(set(parity_r) >= set(parity),
+          f"cli --resume: PARITY.json {sorted(parity_r)}")
+    calls = counts.pop("calls")
+    out = dict(scale=scale, config=s["config"], cuts=cuts,
+               synthetic_frames=s["frames"], iters_scale=s["iters_scale"],
+               argv=argv, seconds=total_s, steps=first_steps,
+               peak_mem_gib=phase_peak, recorded_inputs_gib=recorded_gib,
+               recorded_calls=recorded, stages=stages, launches=counts,
+               calls=calls, parity=parity, resume=dict(
+                   seconds=resume_s, steps=0, parity_kept=sorted(parity_r),
+                   launches={k: v for k, v in resume_counts.items()
+                             if k != "calls"}))
+    emit("cli", **out)
+    return dict(out, out_dir=out_dir, inputs=inputs)
+
+
+def _tensors(x):
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, tuple):
+        return [t for y in x for t in _tensors(y)]
+    return []
+
+
 def main() -> int:
     import torch
 
@@ -1571,13 +2099,22 @@ def main() -> int:
     paths["seq_step"] = phase_step(sc, "seq", SEQ_STEPS)
     phase_profile("seq step", lambda: one_more_step(sc, "seq"))
     phase_seq_knn(sc)
+    # the CLI builds everything anew: the scenes of the phases above go
+    del sc
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_gt_targets("full", "cuda")
+    cli = phase_cli("full", "cuda", os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), CLI_DIR))
+    paths["cli"] = {k: cli[k] for k in ("launches", "calls")}
+    phase_cli_kernels(rows, cli.pop("inputs"))
     for r in rows:
         # launches: the kernel's launches on the driven paths (INIT_STEPS
         # init steps, SPLIT_STEPS split steps, one validation render of
         # each half, the surgery, SURGERY_SEQ_STEPS seq steps on its
-        # template, SEQ_STEPS seq steps); first_k counts its count and
-        # write launches, the scatter each launch of its two sum kernels,
-        # and their calls are the calls of the wrapper
+        # template, SEQ_STEPS seq steps, the CLI's first run); first_k
+        # counts its count and write launches, the scatter each launch of
+        # its two sum kernels, and their calls are the calls of the wrapper
         for what in ("launches", "calls"):
             r[what + "_by_path"] = {k: v[what][r["name"]]
                                     for k, v in paths.items()}
@@ -1588,6 +2125,7 @@ def main() -> int:
          validate={"renders": 2, "layers": VAL_LAYERS},
          surgery={"runs": 1}, surgery_seq_step={"steps": SURGERY_SEQ_STEPS},
          seq_step={"steps": SEQ_STEPS},
+         cli={"runs": 1, "scale": "full"},
          launches={k: v["launches"] for k, v in paths.items()},
          calls={k: v["calls"] for k, v in paths.items()})
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,11 +1,16 @@
-"""Synthetic scene for tests and the on-card run (counterpart of the pose
-and camera part of ``d3human_tpu/data/synthetic.py:make_scene``): the
-capsule body model, its canonical state, per-frame poses on a turntable,
-a look-at camera and the height-band garment labels of the template's
-faces. Ground-truth rendering is not ported; ``disc_target`` gives the
-analytic mask/normal target of the JAX package's bench, with its cloth/body
-split for the split and seq stages; ``seq_bench_template`` builds the
-bench's seq template (``bench.py:build_seq``)."""
+"""Synthetic scene for tests and the on-card run (counterpart of
+``d3human_tpu/data/synthetic.py``): the capsule body model, its canonical
+state, per-frame poses on a turntable, a look-at camera and the
+height-band garment labels of the template's faces.
+
+``SyntheticScene.frame_target`` renders a frame's ground truth (rgb, masks
+and normals of the whole body and of its cloth and body parts) with the
+oracle rasterizer, in the target schema the stage ticks read;
+``CachedTargets`` keeps every frame packed in fp16 on the device instead.
+``disc_target`` gives the analytic mask/normal target of the JAX package's
+bench, with its cloth/body split, for the bench scenes of
+``chip_smoke.py``; ``seq_bench_template`` builds the bench's seq template
+(``bench.py:build_seq``)."""
 
 from __future__ import annotations
 
@@ -22,6 +27,11 @@ from d3human_tpu_torch.models.smplx.deformer import (
 from d3human_tpu_torch.models.smplx.model import (
     SMPLXModel, synthetic_body_model,
 )
+from d3human_tpu_torch.ops import mesh_ops
+from d3human_tpu_torch.ops.rasterizer import (
+    barycentrics, interpolate, interpolate_face_attr, rasterize_bruteforce,
+    xfm_points,
+)
 from d3human_tpu_torch.pipeline.template import (
     cluster_decimate, midpoint_subdivide_in_bbox, seq_template,
 )
@@ -33,11 +43,123 @@ class SyntheticScene:
     model: SMPLXModel
     deformer: SMPLXDeformer
     canon: CanonicalState
-    pose_params: Dict[str, torch.Tensor]
+    pose_params: Dict[str, torch.Tensor]   # per-frame stacks
     mvp: torch.Tensor        # [4, 4]
+    mv: torch.Tensor         # [4, 4]
     campos: torch.Tensor     # [3]
+    resolution: Tuple[int, int]
     n_frames: int
     garment_faces: np.ndarray   # [F] int64, 0 body / 1 cloth
+    # faces, face labels and the normals' flip on the render's device
+    _on_device: Optional[tuple] = dataclasses.field(default=None,
+                                                    repr=False)
+
+    def frame_target(self, frame_idx: int) -> Dict[str, torch.Tensor]:
+        """The ground-truth buffers of frame ``frame_idx`` modulo
+        ``n_frames`` (callers pass the raw iteration counter, as the
+        reference cycles its frames): all_img / cloth_img / body_img with
+        alpha, all_normal and the parts' normals, the camera and a zero
+        background. ``frame_idx`` is a Python int in the result."""
+        frame_idx = int(frame_idx) % self.n_frames
+        out = self._frame_target_impl(frame_idx)
+        out["frame_idx"] = frame_idx
+        return out
+
+    @torch.no_grad()
+    def _frame_target_impl(self, frame_idx: int) -> Dict[str, torch.Tensor]:
+        """JAX ``d3human_tpu/data/synthetic.py:61``: the posed body through
+        the oracle rasterizer; a position-keyed procedural albedo; normals
+        stored y/z-negated, as the reference saves them."""
+        pose = self.pose_params
+        sl = slice(frame_idx, frame_idx + 1)
+        verts, _, _ = self.model.forward(
+            betas=pose["shape"], root_pose=pose["root_pose"][sl],
+            body_pose=pose["body_pose"][sl], transl=pose["trans"][sl])
+        v = verts[0]
+        dev = v.device
+        if self._on_device is None:          # copied to the device once
+            self._on_device = (
+                torch.as_tensor(np.asarray(self.model.faces),
+                                dtype=torch.int32, device=dev),
+                torch.as_tensor(self.garment_faces, dtype=torch.float32,
+                                device=dev)[:, None],
+                torch.tensor([1.0, -1.0, -1.0], device=dev))
+        faces, labels_f, flip = self._on_device
+        v_clip = xfm_points(v, self.mvp)
+        rast = rasterize_bruteforce(
+            v_clip, faces, torch.ones((faces.shape[0],), dtype=torch.bool,
+                                      device=dev), self.resolution)
+        bary, cover = barycentrics(v_clip, faces, rast, self.resolution)
+        alpha = cover[..., None].float()
+        normal = interpolate_face_attr(mesh_ops.face_normals(v, faces), rast)
+        labels = interpolate_face_attr(labels_f, rast)
+        pos = interpolate(v, bary, faces, rast)
+        rgb = (0.5 + 0.4 * torch.sin(pos * 7.0)) * alpha
+        cloth_a = labels * alpha
+        body_a = (1.0 - labels) * alpha
+        gt_normal = normal * flip * alpha
+        return {
+            "frame_idx": frame_idx, "mvp": self.mvp, "mv": self.mv,
+            "campos": self.campos,
+            "all_img": torch.cat([rgb, alpha], -1),
+            "cloth_img": torch.cat([rgb * cloth_a, cloth_a], -1),
+            "body_img": torch.cat([rgb * body_a, body_a], -1),
+            "all_normal": gt_normal,
+            "cloth_normal": gt_normal * cloth_a,
+            "body_normal": gt_normal * body_a,
+            "background": torch.zeros((*self.resolution, 3), device=dev),
+        }
+
+
+def pack_target(t: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """A frame's target as the cache keeps it: [H, W, 8] fp16 of rgb,
+    alpha, garment label (the cloth alpha over the alpha where covered;
+    the oracle's alpha is binary) and normal."""
+    rgb = t["all_img"][..., :3]
+    alpha = t["all_img"][..., 3:4]
+    labels = torch.where(alpha > 0, t["cloth_img"][..., 3:4]
+                         / alpha.clamp_min(1e-8),
+                         torch.zeros((), device=alpha.device))
+    return torch.cat([rgb, alpha, labels, t["all_normal"]],
+                     -1).to(torch.float16)
+
+
+class CachedTargets:
+    """Every frame's ground truth rendered once and kept on the device as
+    8 fp16 channels (``pack_target``; JAX
+    ``d3human_tpu/data/synthetic.py:112``), the target dict rebuilt from
+    them with a few elementwise ops per call."""
+
+    def __init__(self, scene: SyntheticScene):
+        self.scene = scene
+        self.n_frames = scene.n_frames
+        self._cache = torch.stack([
+            pack_target(scene._frame_target_impl(i))
+            for i in range(scene.n_frames)])
+
+    def _reconstruct(self, packed: torch.Tensor, frame_idx: int
+                     ) -> Dict[str, torch.Tensor]:
+        p = packed.float()
+        rgb, alpha, labels, normal = (p[..., :3], p[..., 3:4], p[..., 4:5],
+                                      p[..., 5:8])
+        cloth_a = labels * alpha
+        body_a = (1.0 - labels) * alpha
+        s = self.scene
+        return {
+            "frame_idx": frame_idx, "mvp": s.mvp, "mv": s.mv,
+            "campos": s.campos,
+            "all_img": torch.cat([rgb, alpha], -1),
+            "cloth_img": torch.cat([rgb * cloth_a, cloth_a], -1),
+            "body_img": torch.cat([rgb * body_a, body_a], -1),
+            "all_normal": normal,
+            "cloth_normal": normal * cloth_a,
+            "body_normal": normal * body_a,
+            "background": torch.zeros((*s.resolution, 3), device=p.device),
+        }
+
+    def frame_target(self, frame_idx: int) -> Dict[str, torch.Tensor]:
+        frame_idx = int(frame_idx) % self.n_frames
+        return self._reconstruct(self._cache[frame_idx], frame_idx)
 
 
 def garment_labels(v: np.ndarray, f: np.ndarray) -> np.ndarray:
@@ -77,8 +199,8 @@ def make_scene(resolution=(128, 128), n_frames: int = 4, seed: int = 0,
     proj = perspective(fovy=0.9, aspect=resolution[1] / resolution[0])
     return SyntheticScene(
         model=model, deformer=deformer, canon=canon, pose_params=pose_params,
-        mvp=t(proj @ mv), campos=t(np.linalg.inv(mv)[:3, 3]),
-        n_frames=n_frames,
+        mvp=t(proj @ mv), mv=t(mv), campos=t(np.linalg.inv(mv)[:3, 3]),
+        resolution=tuple(resolution), n_frames=n_frames,
         garment_faces=garment_labels(model.v_template.cpu().numpy(),
                                      model.faces))
 

@@ -1,7 +1,10 @@
-"""Convolutional perceptual loss (counterpart of
-``d3human_tpu/models/perceptual.py:ConvPerceptual``): a fixed 3-tap
-pyramid of 3x3 stride-2 SAME convolutions with ReLU, compared by mean L1
-per tap and averaged over the taps.
+"""Perceptual losses (counterpart of ``d3human_tpu/models/perceptual.py``).
+
+``ConvPerceptual``: a fixed 3-tap pyramid of 3x3 stride-2 SAME
+convolutions with ReLU, compared by mean L1 per tap and averaged over the
+taps. ``PyramidPerceptual``: the weight-free Laplacian-pyramid loss.
+``NullPerceptual``: no perceptual term. ``make_perceptual`` picks one by
+``loss.perceptual_backbone``; the MobileNetV2 backbone is not ported.
 
 Weights are PyTorch's OIHW ``[cout, cin, 3, 3]`` (``convert.py`` turns the
 JAX package's HWIO filters into it); images are NHWC at the interface like
@@ -63,6 +66,78 @@ class ConvPerceptual:
         fy = self.features(params, y)
         losses = [(a - b).abs().mean() for a, b in zip(fx, fy)]
         return sum(losses) / len(losses)
+
+
+def _blur_down(x: torch.Tensor, k2: torch.Tensor) -> torch.Tensor:
+    """Depthwise 5x5 binomial blur, stride 2, SAME (XLA's split of the
+    padding: the odd row/column at the end); x NCHW."""
+    C, H, W = x.shape[1:]
+    ph = max((-(-H // 2) - 1) * 2 + 5 - H, 0)
+    pw = max((-(-W // 2) - 1) * 2 + 5 - W, 0)
+    x = F.pad(x, (pw // 2, pw - pw // 2, ph // 2, ph - ph // 2))
+    return F.conv2d(x, k2.expand(C, 1, 5, 5), stride=2, groups=C)
+
+
+class PyramidPerceptual:
+    """Weight-free perceptual loss (JAX ``models/perceptual.py:107``): at
+    each of ``n_levels`` scales the band-pass detail (the image minus its
+    blurred, downsampled and linearly re-upsampled self) and the
+    finite-difference gradients along x and y, then the low-pass residual;
+    mean L1 per band, averaged over the bands."""
+
+    def __init__(self, n_levels: int = 3):
+        self.n_levels = n_levels
+        k = np.asarray([1.0, 4.0, 6.0, 4.0, 1.0], np.float32) / 16.0
+        self._k2 = np.outer(k, k).astype(np.float32)
+
+    def init(self, device="cuda") -> Params:
+        return {}
+
+    def _bands(self, x: torch.Tensor) -> List[torch.Tensor]:
+        k2 = torch.as_tensor(self._k2, device=x.device)
+        cur = x.permute(0, 3, 1, 2)
+        bands = []
+        for _ in range(self.n_levels):
+            down = _blur_down(cur, k2)
+            up = F.interpolate(down, size=cur.shape[-2:], mode="bilinear",
+                               align_corners=False)
+            bands.append(cur - up)
+            bands.append(cur[..., :, 1:] - cur[..., :, :-1])
+            bands.append(cur[..., 1:, :] - cur[..., :-1, :])
+            cur = down
+        bands.append(cur)
+        return bands
+
+    def loss(self, params: Params, x: torch.Tensor,
+             y: torch.Tensor) -> torch.Tensor:
+        bx, by = self._bands(x), self._bands(y)
+        losses = [(a - b).abs().mean() for a, b in zip(bx, by)]
+        return sum(losses) / len(losses)
+
+
+class NullPerceptual:
+    """No perceptual term: the loss is 0 (JAX ``models/perceptual.py:155``)."""
+
+    def init(self, device="cuda") -> Params:
+        return {}
+
+    def loss(self, params: Params, x: torch.Tensor,
+             y: torch.Tensor) -> torch.Tensor:
+        return torch.zeros((), dtype=x.dtype, device=x.device)
+
+
+def make_perceptual(backbone: str, device="cuda"):
+    """(module, params) for ``loss.perceptual_backbone`` as the JAX driver
+    picks them (``train_d3h.py:234-251``): "pyramid", "none", and
+    ConvPerceptual for any other name but "mobilenet"."""
+    if backbone == "mobilenet":
+        raise NotImplementedError(
+            "perceptual_backbone='mobilenet': the MobileNetV2 backbone is "
+            "not ported yet (ROADMAP.md Queue 1 item 17) and its weights "
+            "are not in the repository; use 'conv', 'pyramid' or 'none'")
+    module = {"pyramid": PyramidPerceptual,
+              "none": NullPerceptual}.get(backbone, ConvPerceptual)()
+    return module, module.init(device)
 
 
 def random_crop_pair(generator: Optional[torch.Generator],

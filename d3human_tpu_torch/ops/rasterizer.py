@@ -1,6 +1,6 @@
 """Differentiable rasterization, on compacted pixels for training and on
 the dense image for validation (counterpart of
-``d3human_tpu/ops/rasterizer.py`` without its oracle rasterizer).
+``d3human_tpu/ops/rasterizer.py``).
 
 ``rasterize`` is hard visibility only (no gradients): per-face screen setup,
 tile binning by one stable sort of the int32 key ``(tile << 20) | zq`` that
@@ -10,8 +10,12 @@ resolve of ``ops/raster_resolve.py`` with the Pallas kernel's semantics
 face ids and walks each tile's live slots only. ``layers > 1`` depth-peels:
 the binning runs once and the resolve repeats with the previous layer's keys
 as the floor.
-The XLA ``_resolve_tile`` path of the JAX package, which orders by float
-(z, id), is not ported.
+``rasterize_bruteforce`` is the oracle: every pixel tests every live face
+through ``_resolve_tile``, which orders by float (z, id) as the JAX
+package's XLA path does. It is plain PyTorch on the card too, by design:
+the JAX package computes it outside any Pallas kernel (it renders the
+synthetic ground truth and checks the binned rasterizer), so it is no
+kernel port and has no CUDA counterpart.
 
 Gradients come from ``barycentrics_compact`` (perspective-correct
 barycentrics recomputed from clip-space corners at each covered pixel) and
@@ -233,6 +237,98 @@ def rasterize(verts_clip: torch.Tensor, faces: torch.Tensor,
         rasts.append(Rast(tri_id=untile(ids), zbuf=untile(zs),
                           n_max_tile=n_max_tile, n_big=b.n_big))
     return rasts[0] if layers == 1 else tuple(rasts)
+
+
+BG_SENTINEL_Z = 3.4e38
+
+
+def _resolve_tile(pix: torch.Tensor, face_ids: torch.Tensor, A, C, az, bz,
+                  cz, live: torch.Tensor, block: int = 128,
+                  floor_z: Optional[torch.Tensor] = None,
+                  floor_id: Optional[torch.Tensor] = None):
+    """Z-buffer of the pixel centres ``pix`` [P, 2] against every face of
+    ``face_ids`` [M] (A [M, 3, 2], C [M, 3], az/bz/cz/live [M]), walked in
+    blocks of ``block`` faces (JAX ``d3human_tpu/ops/rasterizer.py:112``).
+    Within a block the least z wins, then the lowest slot (argmin); a
+    later block wins only with a strictly smaller z. ``floor_z`` /
+    ``floor_id`` [P] depth-peel: only candidates strictly after (floor_z,
+    floor_id) in (z, id + 1) order compete. Returns (id + 1 [P] int32,
+    0 = miss; z [P], ``BG_SENTINEL_Z`` at a miss)."""
+    P, M = pix.shape[0], face_ids.shape[0]
+    dev = pix.device
+    block = min(block, M)
+    nb = -(-M // block)
+    pad = nb * block - M
+    if pad:
+        def pad0(x):
+            return torch.cat([x, torch.zeros((pad,) + x.shape[1:],
+                                             dtype=x.dtype, device=dev)])
+        A, C, az, bz, cz, face_ids, live = map(
+            pad0, (A, C, az, bz, cz, face_ids, live))
+    best_z = torch.full((P,), BG_SENTINEL_Z, device=dev)
+    best_id = torch.zeros((P,), dtype=torch.int32, device=dev)
+    sent = torch.tensor(BG_SENTINEL_Z, device=dev)
+    px, py = pix[:, 0:1], pix[:, 1:2]
+    for s in range(0, nb * block, block):
+        Ab, Cb = A[s:s + block], C[s:s + block]
+        idb, liveb = face_ids[s:s + block], live[s:s + block]
+        E = (pix @ Ab.reshape(-1, 2).T).reshape(P, block, 3) + Cb[None]
+        inside = (E >= 0).all(-1) | (E <= 0).all(-1)
+        z = px * az[None, s:s + block] + py * bz[None, s:s + block] \
+            + cz[None, s:s + block]
+        z = torch.where(inside & liveb[None], z, sent)
+        if floor_z is not None:
+            after = ((z > floor_z[:, None])
+                     | ((z == floor_z[:, None])
+                        & (idb[None, :] + 1 > floor_id[:, None])))
+            z = torch.where(after, z, sent)
+        zmin, arg = torch.min(z, dim=1)
+        better = zmin < best_z
+        best_z = torch.where(better, zmin, best_z)
+        best_id = torch.where(better, (idb[arg] + 1).to(torch.int32),
+                              best_id)
+    return best_id, best_z
+
+
+def rasterize_bruteforce(verts_clip: torch.Tensor, faces: torch.Tensor,
+                         face_valid: torch.Tensor,
+                         resolution: Tuple[int, int], layers: int = 1,
+                         pixel_chunk: int = 1 << 18):
+    """Oracle rasterizer (JAX ``d3human_tpu/ops/rasterizer.py:373``): every
+    pixel tests every live face, no binning and no capacity. Pixels go
+    through ``_resolve_tile`` ``pixel_chunk`` at a time, so the scratch is
+    bounded ([pixel_chunk, 128, 3] edge values); the answer does not
+    depend on the chunk. ``layers > 1`` depth-peels with the (z, id + 1)
+    floor and returns a tuple of ``Rast`` near to far. Plain PyTorch on
+    every device (see the module docstring)."""
+    verts_clip = verts_clip.detach()
+    H, W = resolution
+    dev = verts_clip.device
+    tri = verts_clip[faces.long()]                               # [F, 3, 4]
+    live = face_valid & (tri[..., 3] > 1e-6).all(dim=-1)
+    pix_xy = _screen_xy(tri, resolution)
+    zw = tri[..., 2] / _clamp_w(tri[..., 3])
+    A, C = _edge_coeffs(pix_xy)
+    az, bz, cz = _z_plane(pix_xy, zw)
+    x, y = pix_xy[..., 0], pix_xy[..., 1]
+    area = ((x[:, 1] - x[:, 0]) * (y[:, 2] - y[:, 0])
+            - (x[:, 2] - x[:, 0]) * (y[:, 1] - y[:, 0]))
+    live = live & (area.abs() > 1e-12)
+    px, py = _pixel_centers(resolution, dev)
+    pix = torch.stack([px.reshape(-1), py.reshape(-1)], dim=-1)
+    all_ids = torch.arange(faces.shape[0], dtype=torch.int32, device=dev)
+    out, fz, fi = [], None, None
+    for _ in range(layers):
+        parts = [_resolve_tile(
+            pix[s:s + pixel_chunk], all_ids, A, C, az, bz, cz, live,
+            floor_z=None if fz is None else fz[s:s + pixel_chunk],
+            floor_id=None if fi is None else fi[s:s + pixel_chunk])
+            for s in range(0, H * W, pixel_chunk)]
+        ids = torch.cat([p[0] for p in parts])
+        zs = torch.cat([p[1] for p in parts])
+        out.append(Rast(tri_id=ids.reshape(H, W), zbuf=zs.reshape(H, W)))
+        fz, fi = zs, ids
+    return out[0] if layers == 1 else tuple(out)
 
 
 # ---------------------------------------------------------------- dense

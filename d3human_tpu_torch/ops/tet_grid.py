@@ -4,13 +4,15 @@ Counterpart of ``d3human_tpu/ops/tet_grid.py``: 6 tets per cube sharing the
 main diagonal, unique edges stored class-major over 7 direction classes
 (so an edge id is pure arithmetic), ``edges`` padded with row E = (0, 0),
 and the crop to a box around the canonical template. The arrays equal the
-JAX package's exactly; here they become torch tensors on ``device``.
+JAX package's exactly; here they become torch tensors on ``device``. The
+lattice can be cached in an npz that both packages read.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import os
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -130,27 +132,58 @@ def crop_window(res3, bounds, y_offset, scale, crop_box):
 
 def make_tet_grid(res=128, bounds=((-0.5, -0.5, -0.5), (0.5, 0.5, 0.5)),
                   y_offset: float = -0.1919, scale: float = 1.2,
-                  crop_box=None, device="cuda") -> TetGrid:
+                  crop_box=None, device="cuda",
+                  cache_path: Optional[str] = None) -> TetGrid:
     """The lattice with the reference transforms (verts[:,1] += y_offset;
     verts *= scale), optionally cropped to ``crop_box`` by slicing the full
-    per-axis linspaces (so kept vertices are a bitwise subset)."""
+    per-axis linspaces (so kept vertices are a bitwise subset).
+
+    ``cache_path``: an npz of the lattice in the JAX package's layout
+    (verts, tets, edges, tet_edges, dims and ``meta``, which holds every
+    input beyond the file name); read when its meta matches, else built
+    and written."""
     res3 = (res, res, res) if isinstance(res, int) else tuple(res)
-    if crop_box is not None:
-        win = crop_window(res3, bounds, y_offset, scale, crop_box)
-        axes = []
-        for ax, (i0, i1) in enumerate(win):
-            full = np.linspace(bounds[0][ax], bounds[1][ax], res3[ax] + 1,
-                               dtype=np.float32)
-            axes.append(full[i0:i1 + 1])
-        res3 = tuple(i1 - i0 for i0, i1 in win)
+    cb = ([np.nan] * 6 if crop_box is None
+          else list(crop_box[0]) + list(crop_box[1]))
+    meta = np.asarray([y_offset, scale,
+                       *np.asarray(bounds, np.float64).ravel(), *cb, *res3],
+                      np.float64)
+    cached = None
+    if cache_path is not None and os.path.exists(cache_path):
+        with np.load(cache_path) as z:
+            if "meta" in z and z["meta"].shape == meta.shape \
+                    and np.array_equal(z["meta"], meta, equal_nan=True):
+                cached = {k: z[k] for k in ("verts", "tets", "edges",
+                                            "tet_edges", "dims")}
+            else:
+                print(f"[tet_grid] stale cache {cache_path} (meta "
+                      "mismatch): rebuilding", flush=True)
+    if cached is not None:
+        verts, tets, edges, tet_edges = (cached["verts"], cached["tets"],
+                                         cached["edges"], cached["tet_edges"])
+        res3 = tuple(int(d) for d in cached["dims"])
     else:
-        axes = [np.linspace(bounds[0][ax], bounds[1][ax], res3[ax] + 1,
-                            dtype=np.float32) for ax in range(3)]
-    gx, gy, gz = np.meshgrid(*axes, indexing="ij")
-    verts = np.stack([gx, gy, gz], axis=-1).reshape(-1, 3)
-    verts[:, 1] += y_offset
-    verts *= scale
-    edges, tets, tet_edges = structured_topology(res3)
+        if crop_box is not None:
+            win = crop_window(res3, bounds, y_offset, scale, crop_box)
+            axes = []
+            for ax, (i0, i1) in enumerate(win):
+                full = np.linspace(bounds[0][ax], bounds[1][ax],
+                                   res3[ax] + 1, dtype=np.float32)
+                axes.append(full[i0:i1 + 1])
+            res3 = tuple(i1 - i0 for i0, i1 in win)
+        else:
+            axes = [np.linspace(bounds[0][ax], bounds[1][ax], res3[ax] + 1,
+                                dtype=np.float32) for ax in range(3)]
+        gx, gy, gz = np.meshgrid(*axes, indexing="ij")
+        verts = np.stack([gx, gy, gz], axis=-1).reshape(-1, 3)
+        verts[:, 1] += y_offset
+        verts *= scale
+        edges, tets, tet_edges = structured_topology(res3)
+        if cache_path is not None:
+            os.makedirs(os.path.dirname(cache_path) or ".", exist_ok=True)
+            np.savez_compressed(cache_path, verts=verts, tets=tets,
+                                edges=edges, tet_edges=tet_edges,
+                                dims=np.asarray(res3), meta=meta)
     edges = np.concatenate([edges, np.zeros((1, 2), edges.dtype)], axis=0)
 
     def t(a, dtype):

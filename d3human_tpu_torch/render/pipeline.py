@@ -15,7 +15,8 @@
 
 Shading is albedo-only (``bsdf="kd"``, what the reference forces at run
 time) or the two-sided normal (``"normal"``). The environment-light
-shading (``"pbr"``) and the brute-force oracle rasterizer are not ported.
+shading (``"pbr"``) is not ported. ``use_bruteforce_raster`` routes the
+full path through the oracle rasterizer (``rasterize_bruteforce``).
 
 Random draws (texture jitter ``0.01 N(0,1)``, normal-tap jitter
 ``0.005 N(0,1)``) come from ``generator`` unless ``draws = (n_tex, n_uv)``
@@ -34,8 +35,8 @@ from d3human_tpu_torch.ops.rasterizer import (
     Rast, aa_geometry_compact, aa_pair_candidates, aa_pairs_compact,
     aa_weights, apply_aa, apply_aa_sparse, avg_pool_nhwc, barycentrics,
     barycentrics_compact, compact_cover, interpolate, interpolate_face_attr,
-    pixel_centers_at, rasterize, scatter_image, visible_face_mask,
-    xfm_points,
+    pixel_centers_at, rasterize, rasterize_bruteforce, scatter_image,
+    visible_face_mask, xfm_points,
 )
 from d3human_tpu_torch.ops.scatter import gather_rows
 
@@ -356,18 +357,18 @@ def render_mesh_full(
         raise NotImplementedError(
             f"bsdf={bsdf!r}: the environment-light shading (envshade, light, "
             "cubemap) belongs to a later slice of the port")
-    if use_bruteforce_raster:
-        raise NotImplementedError(
-            "use_bruteforce_raster: the oracle rasterizer belongs to a later "
-            "slice of the port")
     H, W = resolution
     full_res = (H * spp, W * spp)
     dev = verts.device
     zero = torch.zeros((), device=dev)
 
     v_clip = xfm_points(verts, mvp)
-    rast = rasterize(v_clip, faces, face_valid, full_res, layers=layers,
-                     **(raster_opts or {}))
+    if use_bruteforce_raster:
+        rast = rasterize_bruteforce(v_clip, faces, face_valid, full_res,
+                                    layers=layers)
+    else:
+        rast = rasterize(v_clip, faces, face_valid, full_res, layers=layers,
+                         **(raster_opts or {}))
     rast_layers = rast if layers > 1 else (rast,)
     rast = rast_layers[0]
     bary, cover = barycentrics(v_clip, faces, rast, full_res)

@@ -1,16 +1,172 @@
-"""Stage artifacts (counterpart of part of ``d3human_tpu/train/stages.py``):
-``export_stage_meshes`` writes a stage's extracted meshes as objs for the
-host surgery between the split and the seq stage."""
+"""Stage drivers (counterpart of ``d3human_tpu/train/stages.py``): the
+loop of the init, split and split_smpl stages (``run_stage``), the serial
+per-frame seq loop (``run_seq_stage``), and the stage artifacts
+(``export_stage_meshes``, the visible-triangle sets). Checkpoints, scalar
+logs, validation strips and meshes land under the stage's directory in
+the JAX package's file layout.
+
+Each iteration draws its random numbers from a generator seeded by
+``fold_in(stage seed, iteration)`` (the counterpart of
+``jax.random.fold_in(key, it)``), never from one running stream, so a
+resumed run replays the draws. Inside an iteration nothing reads the
+device back: the host waits for it only in ``StepTimer.flush`` (every
+``SYNC_EVERY`` iterations) and at the log, checkpoint and validation
+points.
+"""
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Dict
+from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
-from d3human_tpu_torch.models.geometry import GeometryModel
+from d3human_tpu_torch.config import Config
+from d3human_tpu_torch.models.geometry import GeometryModel, SeqTemplate
+from d3human_tpu_torch.ops.rasterizer import rasterize, xfm_points
+from d3human_tpu_torch.train.checkpoint import load_state, save_state
+from d3human_tpu_torch.train.step import TrainState
 from d3human_tpu_torch.utils import io as mesh_io
+from d3human_tpu_torch.utils.logging import ScalarLogger, StepTimer
+
+SYNC_EVERY = 10          # iterations between two waits for the device
+VALIDATE_TAG = 0x7FFFFFFF
+SEQ_VALIDATE_TAG = 0x7EADBEE
+
+
+def fold_in(seed: int, data: int) -> int:
+    """A 63-bit seed from (seed, data), independent across ``data``."""
+    return int(np.random.SeedSequence([seed & (2 ** 63 - 1), data])
+               .generate_state(1, np.uint64)[0] >> np.uint64(1))
+
+
+def iteration_generator(seed: int, data: int, device) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(fold_in(seed, data))
+
+
+def _scalars(metrics: Dict) -> Dict[str, float]:
+    """The 0-d entries of ``metrics`` as floats, read back in one copy."""
+    keys = [k for k, v in metrics.items()
+            if isinstance(v, torch.Tensor) and v.dim() == 0]
+    out = {k: float(v) for k, v in metrics.items()
+           if isinstance(v, (int, float))}
+    if keys:
+        vals = torch.stack([metrics[k].detach().float() for k in keys]).cpu()
+        out.update(zip(keys, vals.tolist()))
+    return out
+
+
+def _warn_capacity(stage: str, scalars: Dict[str, float]) -> None:
+    """Loud warnings for absurd loss scalars (a NaN, an overflow or a
+    corrupted read-back) and for raster capacity past its validated
+    regime."""
+    absurd = {k: v for k, v in scalars.items()
+              if ("loss" in k or k == "total") and not (abs(v) < 1e9)}
+    if absurd:
+        print(f"[{stage}] WARNING: absurd loss scalars {absurd}: suspect "
+              "corrupted readback or numerical blowup", flush=True)
+    nmt = max((v for k, v in scalars.items() if k.endswith("n_max_tile")),
+              default=0)
+    if nmt > 2.5 * 896:
+        print(f"[{stage}] WARNING: per-tile face count {nmt:.0f} exceeds "
+              "validated truncation regime (2.5x 896); raster coverage may "
+              "be wrong: raise max_faces_per_tile", flush=True)
+    nbig = max((v for k, v in scalars.items() if k.endswith("n_big_faces")),
+               default=0)
+    if nbig > 128:
+        print(f"[{stage}] WARNING: {nbig:.0f} oversize faces exceed the 128-"
+              "slot global raster list; near-camera geometry may be "
+              "dropped: raise max_global", flush=True)
+
+
+def run_stage(stage: str, n_iters: int, state: TrainState, step_fn,
+              next_target: Callable[[int], Dict], cfg: Config,
+              save_path: str, seed: int,
+              model: Optional[GeometryModel] = None, start_it: int = 0,
+              tex_module=None) -> TrainState:
+    """Iterations ``start_it .. n_iters - 1`` of one stage (ref
+    optimize_mesh_init / split, train.py:651-833, :949-1243): log every
+    ``log_interval``, a state in ``ckp/`` and (with ``model`` and
+    ``tex_module``) a validation every ``save_checkpoint_interval``, then
+    the final state, the final validation and
+    ``validate/final_metrics.json``. A stage resumed past its end whose
+    final metrics exist is returned as it is."""
+    os.makedirs(save_path, exist_ok=True)
+    logger = ScalarLogger(os.path.join(save_path, "loss_log"))
+    timer = StepTimer()
+    every = cfg.stages.save_checkpoint_interval
+    dev = model.grid.verts.device if model is not None else "cpu"
+
+    def maybe_validate(it):
+        if tex_module is None or model is None:
+            return None
+        from d3human_tpu_torch.train.validate import (
+            validate_split_stage, validate_stage,
+        )
+        from d3human_tpu_torch.utils.metrics import iou, psnr
+
+        target = next_target(it)
+        vdir = os.path.join(save_path, "validate")
+        gen = iteration_generator(seed, VALIDATE_TAG, dev)
+        if stage.startswith("split"):
+            strip, metrics = validate_split_stage(
+                gen, model, state.params, tex_module, target, cfg)
+        else:
+            strip, buffers = validate_stage(
+                gen, model, state.params, tex_module, target, cfg,
+                return_buffers=True)
+            gt = target["all_img"]
+            metrics = {
+                "psnr": float(psnr(buffers.shaded[..., :3] * gt[..., 3:],
+                                   gt[..., :3] * gt[..., 3:])),
+                "mask_iou": float(iou(buffers.shaded[..., 3] > 0.5,
+                                      gt[..., 3] > 0.5)),
+            }
+        mesh_io.save_image(os.path.join(vdir, f"img_pass1_{it:06d}.png"),
+                           strip)
+        logger.log(it, {f"val_{k}": v for k, v in metrics.items()})
+        print(f"[{stage}] validate iter={it}: "
+              + " ".join(f"{k}={v:.4f}" for k, v in metrics.items()),
+              flush=True)
+        return metrics
+
+    timer.start()
+    for it in range(start_it, n_iters):
+        target = next_target(it)
+        state, aux = step_fn(state, target,
+                             iteration_generator(seed, it, dev))
+        timer.lap()
+        if (it % SYNC_EVERY == 0 or it % cfg.stages.log_interval == 0
+                or it == n_iters - 1):
+            timer.flush(aux["total"])
+        if it % cfg.stages.log_interval == 0:
+            scalars = _scalars(aux)
+            scalars["time_ms"] = timer.avg_ms
+            logger.log(it, scalars)
+            print(f"[{stage}] iter={it:5d} total={scalars['total']:.4f} "
+                  f"time={timer.avg_ms:.1f}ms rem={timer.eta(n_iters - it)}",
+                  flush=True)
+            _warn_capacity(stage, scalars)
+        if it % every == 0 and it != 0:
+            save_state(os.path.join(save_path, "ckp", f"state_{it}.npz"),
+                       state)
+            maybe_validate(it)
+    fm_path = os.path.join(save_path, "validate", "final_metrics.json")
+    if start_it >= n_iters and os.path.exists(fm_path):
+        print(f"[{stage}] resume: stage complete, reusing {fm_path}",
+              flush=True)
+        logger.close()
+        return state
+    save_state(os.path.join(save_path, "ckp", f"state_{n_iters - 1}.npz"),
+               state)
+    final_metrics = maybe_validate(n_iters - 1)
+    if final_metrics is not None:
+        with open(fm_path, "w") as fh:
+            json.dump({"iter": n_iters - 1, **final_metrics}, fh)
+    logger.close()
+    return state
 
 
 def export_stage_meshes(model: GeometryModel, params: Dict, save_path: str,
@@ -36,3 +192,101 @@ def export_stage_meshes(model: GeometryModel, params: Dict, save_path: str,
                                      f"watertight_imesh_{tag}.obj")
     mesh_io.write_obj(out["watertight"], *wt)
     return out
+
+
+def _make_visible_triangles_fn(cfg: Config):
+    """(posed verts, faces, mvp) -> int32 [K] ids of the faces that win a
+    pixel at the training resolution (ref train.py:1513-1519, collected at
+    render/render.py:404-407); the binned rasterizer, no gradients."""
+
+    def visible(v, f, mvp):
+        with torch.no_grad():
+            rast = rasterize(xfm_points(v, mvp), f,
+                             torch.ones((f.shape[0],), dtype=torch.bool,
+                                        device=v.device),
+                             tuple(cfg.render.train_res))
+        ids = np.unique(rast.tri_id.cpu().numpy())
+        return (ids[ids > 0] - 1).astype(np.int32)
+
+    return visible
+
+
+def run_seq_stage(state: TrainState, step_fn, template: SeqTemplate,
+                  frame_targets: Callable[[int], Dict], n_frames: int,
+                  cfg: Config, save_path: str, seed: int,
+                  model: GeometryModel, tex_module=None) -> TrainState:
+    """The serial per-frame seq stage (ref train.py:1921-1926 and
+    :1349-1352): frame 0 trains ``seq_iters_first`` iterations, each later
+    frame ``seq_iters_rest`` from the frame before, up to
+    ``seq_max_frames`` frames. Each frame writes ``delta/<frame>.npz``
+    (the offsets and the visible triangles), ``fine_all_<frame>.ply``,
+    with ``tex_module`` a validation strip and its metrics, then
+    ``ckp/state_frame<frame>.npz``; states older than the frame before
+    are pruned. A rerun resumes after the newest frame state."""
+    os.makedirs(os.path.join(save_path, "delta"), exist_ok=True)
+    ckp_dir = os.path.join(save_path, "ckp")
+    os.makedirs(ckp_dir, exist_ok=True)
+    n_frames = min(n_frames, cfg.stages.seq_max_frames)
+    dev = model.grid.verts.device
+    timer = StepTimer()
+    logger = ScalarLogger(os.path.join(save_path, "loss_log"))
+    visible_fn = _make_visible_triangles_fn(cfg)
+    start_frame = 0
+    for frame in range(n_frames - 1, -1, -1):
+        p = os.path.join(ckp_dir, f"state_frame{frame}.npz")
+        if os.path.exists(p):
+            state = load_state(p, state)
+            start_frame = frame + 1
+            print(f"[seq] resume: frames 0..{frame} complete, starting at "
+                  f"frame {start_frame}", flush=True)
+            break
+    for frame in range(start_frame, n_frames):
+        iters = (cfg.stages.seq_iters_first if frame == 0
+                 else cfg.stages.seq_iters_rest)
+        target = frame_targets(frame)
+        timer.start()
+        for it in range(iters):
+            state, aux = step_fn(state, target, iteration_generator(
+                seed, frame * 100000 + it, dev))
+            timer.lap()
+            if it % SYNC_EVERY == 0 or it % cfg.stages.log_interval == 0 \
+                    or it == iters - 1:
+                timer.flush(aux["total"])
+            if it % cfg.stages.log_interval == 0:
+                scalars = _scalars(aux)
+                scalars["time_ms"] = timer.avg_ms
+                logger.log(frame * 100000 + it, scalars)
+                print(f"[seq] frame={frame} iter={it:4d} "
+                      f"total={scalars['total']:.4f} "
+                      f"time={timer.avg_ms:.1f}ms", flush=True)
+        with torch.no_grad():
+            posed, delta = model.seq_deformed(
+                state.params["geometry"], template, state.params["pose"],
+                int(target["frame_idx"]))
+        np.savez(os.path.join(save_path, "delta", f"{frame}.npz"),
+                 delta=delta.cpu().numpy(),
+                 visible_triangles=visible_fn(posed, template.f,
+                                              target["mvp"]))
+        mesh_io.write_ply(os.path.join(save_path, f"fine_all_{frame}.ply"),
+                          posed, template.f)
+        if tex_module is not None:
+            from d3human_tpu_torch.train.validate import validate_seq_stage
+
+            strip, metrics = validate_seq_stage(
+                iteration_generator(seed, SEQ_VALIDATE_TAG + frame, dev),
+                model, state.params, tex_module, template, target, cfg)
+            mesh_io.save_image(os.path.join(
+                save_path, "validate", f"seq_frame{frame:04d}.png"), strip)
+            logger.log(frame * 100000 + iters,
+                       {f"val_{k}": v for k, v in metrics.items()})
+            print(f"[seq] validate frame={frame}: "
+                  + " ".join(f"{k}={v:.4f}" for k, v in metrics.items()),
+                  flush=True)
+        save_state(os.path.join(ckp_dir, f"state_frame{frame}.npz"), state)
+        # resume reads only the newest frame state
+        for old in range(frame - 1):
+            op = os.path.join(ckp_dir, f"state_frame{old}.npz")
+            if os.path.exists(op):
+                os.remove(op)
+    logger.close()
+    return state

@@ -1,12 +1,14 @@
-"""Mesh files of the stage artifacts (counterpart of
+"""Files of the stage artifacts (counterpart of
 ``d3human_tpu/utils/io.py``): OBJ and binary PLY reading and writing, in
-the JAX package's text and byte layout, and the host-side compaction and
-welding of the extraction's fixed-capacity meshes. Arrays may be numpy
-arrays or tensors on any device."""
+the JAX package's text and byte layout, 8-bit PNG images, and the
+host-side compaction and welding of the extraction's fixed-capacity
+meshes. Arrays may be numpy arrays or tensors on any device."""
 
 from __future__ import annotations
 
 import os
+import struct
+import zlib
 from typing import Optional, Tuple
 
 import numpy as np
@@ -114,6 +116,34 @@ def read_ply(path: str) -> Tuple[np.ndarray, np.ndarray]:
         rec = np.frombuffer(f.read(n_faces * 13),
                             dtype=[("n", "u1"), ("idx", "<i4", 3)])
         return verts, np.array(rec["idx"], np.int64)
+
+
+def save_image(path: str, img) -> None:
+    """Linear [0, 1] float image [H, W], [H, W, 1], [H, W, 3] or
+    [H, W, 4] -> 8-bit PNG (gray, RGB or RGBA), values clipped and
+    truncated as the JAX package's writer does. Written with the standard
+    library alone (zlib, filter 0 on every row)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    arr = np.clip(host(img) * 255, 0, 255).astype(np.uint8)
+    if arr.ndim == 3 and arr.shape[-1] == 1:
+        arr = arr[..., 0]
+    H, W = arr.shape[:2]
+    color = {2: 0, 3: {3: 2, 4: 6}.get(arr.shape[-1])}[arr.ndim]
+    if color is None:
+        raise ValueError(f"save_image: {arr.shape[-1]} channels")
+    rows = np.ascontiguousarray(arr).reshape(H, -1)
+    raw = np.concatenate([np.zeros((H, 1), np.uint8), rows], 1).tobytes()
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, color,
+                                           0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
+        f.write(chunk(b"IEND", b""))
 
 
 def compact_mesh(verts, faces, face_valid) -> Tuple[np.ndarray, np.ndarray]:

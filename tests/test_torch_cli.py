@@ -1,0 +1,233 @@
+"""The port's CLI (``python -m d3human_tpu_torch.train_d3h``) on the CPU:
+all four stages on ``chip_smoke.py``'s CPU-sized ``cli`` scale (a copy of
+``configs/smoke.json`` with the pretrainings cut, the lattice cropped and
+48² pixels) through the script's own phase, which also reruns it with
+``--resume``; the JAX driver's file tree; a resumed run bit for bit the
+uninterrupted one; the flags it refuses."""
+
+import json
+import os
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def cli_run(tmp_path_factory):
+    """chip_smoke.py's ``cli`` phase at its CPU-sized scale: the first run
+    and the resumed one, with the phase's own checks."""
+    import chip_smoke
+
+    root = str(tmp_path_factory.mktemp("cli"))
+    return chip_smoke.phase_cli("tiny", "cpu", root)
+
+
+def test_chip_smoke_cli_rehearsal(cli_run):
+    """Four stages at their scaled budgets, [done], finite losses and the
+    stage outputs (checked inside the phase); the resumed run ran no step
+    and kept every PARITY.json entry."""
+    st = cli_run["stages"]
+    assert {k: st[k]["iterations"] for k in
+            ("split_smpl", "init", "split", "seq")} == {
+        "split_smpl": 2, "init": 4, "split": 2, "seq": 4}
+    assert cli_run["steps"] == 12 and cli_run["resume"]["steps"] == 0
+    assert set(cli_run["resume"]["parity_kept"]) >= {
+        "split_smpl", "init", "split", "seq_template_frame0", "seq"}
+    seq = cli_run["parity"]["seq"]
+    assert seq["n_frames"] == 2 and np.isfinite(seq["chamfer_per_frame_max"])
+    assert cli_run["cuts"]["stages.sdf_mlp_pretrain_steps"] == [300, 100]
+    for name in ("split_smpl", "init", "split"):
+        assert st[name]["validation"], name
+        assert st[name]["gt_renders"] >= st[name]["iterations"]
+
+
+def test_chip_smoke_cli_recorded_inputs(cli_run):
+    """The first run's kernel inputs, recorded by call site for the
+    ``cli_kernels`` phase: every kernel and every stage's resolve is there,
+    and each record is held to its plain version as that phase holds the
+    kernel (the scatter's recorded rows within rel 1e-5 / abs 1e-6 of the
+    plain version and the float32 bound of the float64 sum, the resolve's
+    plain live ranges equal to its full scan, first_k equal to
+    ``torch.nonzero`` + pad)."""
+    import chip_smoke
+    from d3human_tpu_torch.ops import compaction
+    from d3human_tpu_torch.ops import raster_resolve as rr
+
+    inputs = cli_run["inputs"]
+    assert set(inputs) == {"first_k_indices", "coo_scatter_add",
+                           "resolve_tiles_indexed"}
+    files = {k: {site.split(":")[0] for site in v} for k, v in inputs.items()}
+    assert files["first_k_indices"] >= {"marching_tets.py", "rasterizer.py"}
+    # the normals' segment add by its caller, the gathers' backward by its
+    # own line
+    assert files["coo_scatter_add"] >= {"mesh_ops.py", "scatter.py",
+                                        "rasterizer.py", "marching_tets.py"}
+    stages = {site.split()[1] for site in inputs["resolve_tiles_indexed"]}
+    assert stages >= {"split_smpl", "init", "split", "seq"}
+    for site, s in inputs["first_k_indices"].items():
+        mask, k, fill = s["args"]
+        assert fill == mask.numel()
+        nz = torch.nonzero(mask.reshape(-1)).reshape(-1)[:k].int()
+        want = torch.cat([nz, torch.full((k - nz.numel(),), fill,
+                                         dtype=torch.int32)])
+        assert torch.equal(compaction.first_k_indices(mask, k, fill),
+                           want), site
+    for site, s in inputs["coo_scatter_add"].items():
+        r = chip_smoke.check_scatter_values(site, *s["args"])
+        assert r["bitwise"], site
+    for site, s in inputs["resolve_tiles_indexed"].items():
+        rows, all_faces, ntx, floor, counts, global_range = s["args"]
+        copied = rows[all_faces.long()]
+        assert torch.equal(
+            rr.resolve_tiles_indexed(rows, all_faces, (8, 128), ntx, floor,
+                                     counts, global_range),
+            rr.resolve_tiles_plain(copied, (8, 128), ntx, floor)), site
+
+
+def test_chip_smoke_gt_targets_rehearsal():
+    import chip_smoke
+
+    out = chip_smoke.phase_gt_targets("tiny", "cpu")
+    assert out["covered_pixels"] > 100 and out["tri_id_differs"] == 0
+    assert max(out["cache_max_abs_err"].values()) < 4e-4
+
+
+# the JAX driver's outputs under the out dir, with where each is written
+FILE_TREE = [
+    "PARITY.json",                                    # train_d3h.py:133
+    "smpl_template.obj",                              # train_d3h.py:404-406
+    "tet_grid_24_crop0.1.npz",                        # train_d3h.py:198-203
+    "split_smpl/split_cloth_imesh_final.obj",         # train_d3h.py:344-346
+    "split_smpl/split_body_imesh_final.obj",
+    "split_smpl/watertight_imesh_final.obj",          # stages.py:207-213
+    "split_smpl/ckp/state_1.npz",                     # stages.py:181-182
+    "split_smpl/validate/img_pass1_000001.png",       # stages.py:81-82
+    "split_smpl/validate/final_metrics.json",         # stages.py:187-189
+    "split_smpl/loss_log/scalars.jsonl",              # stages.py:60
+    "close_hole_smpl/body_concat.obj",                # train_d3h.py:347-348
+    "close_hole_smpl/cloth_concat.obj",
+    "close_hole_smpl/bbox.npz",
+    "init/ckp/state_3.npz",                           # train_d3h.py:366-370
+    "init/validate/img_pass1_000003.png",             # stages.py:92-93
+    "init/validate/final_metrics.json",
+    "init/watertight_imesh_final.obj",
+    "init/loss_log/scalars.jsonl",
+    "split_cloth0/ckp/state_1.npz",                   # train_d3h.py:376-388
+    "split_cloth0/validate/final_metrics.json",
+    "split_cloth0/split_cloth_imesh_final.obj",
+    "split_cloth0/split_body_imesh_final.obj",
+    "close_hole_split_cloth0/body_concat.obj",        # train_d3h.py:393-398
+    "close_hole_split_cloth0/bbox.npz",
+    "processsplit_cloth0/merge_body_cloth.npz",       # train_d3h.py:407-411
+    "processsplit_cloth0/inside_body_index.npz",
+    "seq/delta/0.npz",                                # stages.py:389-392
+    "seq/delta/1.npz",
+    "seq/fine_all_0.ply",                             # stages.py:393-394
+    "seq/fine_all_1.ply",
+    "seq/validate/seq_frame0000.png",                 # stages.py:402-403
+    "seq/validate/seq_frame0001.png",
+    "seq/ckp/state_frame0.npz",                       # stages.py:409
+    "seq/ckp/state_frame1.npz",
+    "seq/loss_log/scalars.jsonl",                     # stages.py:343
+]
+
+
+def test_cli_writes_the_jax_drivers_file_tree(cli_run):
+    out = cli_run["out_dir"]
+    missing = [p for p in FILE_TREE if not os.path.exists(os.path.join(
+        out, p))]
+    assert not missing
+    cache = os.listdir(os.path.join(out, "cache"))
+    assert sorted(f.split("_")[0] for f in cache) == ["nonrigid", "sdf"]
+    with np.load(os.path.join(out, "seq", "delta", "1.npz")) as z:
+        assert z["delta"].ndim == 2 and z["delta"].shape[1] == 3
+        assert z["visible_triangles"].dtype == np.int32
+        assert len(z["visible_triangles"]) > 0
+    with open(os.path.join(out, "split_smpl", "validate",
+                           "final_metrics.json")) as fh:
+        fm = json.load(fh)
+    assert fm["iter"] == 1 and {"psnr", "mask_iou", "body_iou",
+                                "cloth_iou"} <= set(fm)
+    with open(os.path.join(out, "init", "loss_log", "scalars.jsonl")) as fh:
+        first = json.loads(fh.readline())
+    assert first["step"] == 0 and "total" in first and "time_ms" in first
+
+
+def _run(argv, monkeypatch=None, stop_at=None):
+    """``main(argv)``; with ``stop_at``, the run is cut off (an exception)
+    as it enters its training step number ``stop_at``."""
+    import d3human_tpu_torch.train_d3h as cli
+
+    if stop_at is not None:
+        orig = cli.make_train_step
+        calls = {"n": 0}
+
+        class Cut(Exception):
+            pass
+
+        def make(*a, **kw):
+            fn = orig(*a, **kw)
+
+            def step(*sa, **skw):
+                if calls["n"] == stop_at:
+                    raise Cut
+                calls["n"] += 1
+                return fn(*sa, **skw)
+            return step
+
+        monkeypatch.setattr(cli, "make_train_step", make)
+        with pytest.raises(Cut):
+            cli.main(argv)
+        monkeypatch.undo()
+        return
+    assert cli.main(argv) == 0
+
+
+def test_resumed_run_equals_uninterrupted_bit_for_bit(cli_run, tmp_path,
+                                                      monkeypatch):
+    """The init stage, 4 iterations with a state every 2: once straight
+    through, once cut off before its fourth step and resumed from
+    ``state_2.npz``. The final states are equal bit for bit. Both runs
+    start from the rehearsal's pretraining caches."""
+    src = cli_run["out_dir"]
+    cfg = json.load(open(os.path.join(os.path.dirname(src), "config.json")))
+    cfg["stages"]["save_checkpoint_interval"] = 2
+    cfg_path = str(tmp_path / "config.json")
+    json.dump(cfg, open(cfg_path, "w"))
+    finals = []
+    for name, cut in (("straight", None), ("cut", 3)):
+        out = tmp_path / name
+        shutil.copytree(os.path.join(src, "cache"), out / "cache")
+        argv = ["--config", cfg_path, "--out-dir", str(out), "--synthetic",
+                "--synthetic-frames", "2", "--stages", "init",
+                "--iters-scale", "0.002", "--device", "cpu"]
+        if cut is not None:
+            _run(argv, monkeypatch, stop_at=cut)
+            ckp = sorted(os.listdir(out / "init" / "ckp"))
+            assert ckp == ["state_2.npz"]
+            argv = argv + ["--resume"]
+        _run(argv)
+        with np.load(out / "init" / "ckp" / "state_3.npz") as z:
+            finals.append({k: z[k] for k in z.files})
+    a, b = finals
+    assert a.keys() == b.keys() and any("['opt']['mu']" in k for k in a)
+    for k in a:
+        np.testing.assert_array_equal(b[k], a[k], err_msg=k)
+
+
+def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    import d3human_tpu_torch.train_d3h as cli
+
+    out = ["--out-dir", str(tmp_path / "o")]
+    with pytest.raises(SystemExit, match="16e"):
+        cli.main(out + ["--device", "cpu"])
+    with pytest.raises(SystemExit, match="item 18"):
+        cli.main(out + ["--synthetic", "--seq-parallel", "--device", "cpu"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        cli.main(out + ["--synthetic"])
+    assert not os.path.exists(tmp_path / "o")
