@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, nvcc and the repository checkout. Phases, one JSON
-object per line:
+object per line (``t``: the script's seconds when the phase ended):
 
   device       card name and power limit (nvidia-smi); exits non-zero
                without a CUDA device
@@ -130,6 +130,36 @@ object per line:
                binning (the seq stage's on the seq template), each held
                to its plain version as in surgery_kernels; reported under
                "cli" in each row
+  capture_export  the port's exporter (d3human_tpu_torch.scripts.
+               export_reference_layout) writes the synthetic scene in the
+               reference's capture layout at 1080^2, 4 frames, under
+               CAPTURE_DIR: seconds, files, bytes
+  capture_data FrameDataset on that layout: per frame the host decode
+               and the device preprocessing (ms), the targets against the
+               scene's frame_target under the exporter's camera within the
+               JAX round-trip bounds (mvp 1e-4, mask IoU > 0.99, rgb 0.02,
+               normals 0.05); frame 0 at the camera's own 2160^2 (each
+               pixel a 2x2 block that averages to it): host decode and
+               device preprocessing (ms), targets equal to frame 0's and
+               the 2x resize on the card equal to the CPU's; load_image exactly equal on frame 0's RGB
+               image re-encoded with each scanline filter 0-4 and with one
+               per row (ms a decode); the frame cache read through the
+               native library within 2e-3 of frame_target (ms a frame,
+               MiB); a seeded body model in the official SMPL-X npz layout
+               at SMPL-X's widths (10,475 verts, 20,908 faces, 55 joints,
+               shapedirs [V, 3, 400], posedirs [V, 3, 486]):
+               load_smplx_npz and forward on the card against the CPU
+               within rel 1e-5, and the canonical weight transfer of the
+               CLI's 441,180-vertex lattice, timed
+  capture_cli  the cli phase's command without --synthetic, on that
+               layout (--trainset_path CAPTURE_DIR --folder_name
+               neutral-synth): the same checks (no --resume run), per
+               stage also the data ms an iteration (frame_target, not the
+               background composited after it) on CUDA events and on the
+               host's clock, and the host decode ms; PARITY.json without
+               Chamfer; the first run's kernel calls recorded by call site
+  capture_kernels  the cli_kernels checks at the capture run's calls;
+               reported under "capture" in each row
 
 Then the kernel table, the nvidia-smi line, and the result line
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
@@ -168,8 +198,13 @@ STATE_KEY = {"init": "state", "split": "split_state", "seq": "seq_state"}
 STEP_PHASE = {"init": "step", "split": "split_step", "seq": "seq_step"}
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """A phase's JSON line; ``t`` is the script's seconds so far."""
+    print(json.dumps({"phase": phase, "t": time.perf_counter() - T0, **kw}),
+          flush=True)
 
 
 def smi_line() -> str:
@@ -378,16 +413,19 @@ def graph_ms(fn, reps: int = 20, calls: int = 1) -> float:
     return cuda_ms(graph.replay, reps=reps) / calls
 
 
-def parts_ms(fn, parts: dict, reps: int = 5, tries: int = 3) -> dict:
+def parts_ms(fn, parts: dict, need=None, reps: int = 5,
+             tries: int = 3) -> dict:
     """Device time per call of ``fn`` by part, from the profiler's rows of
     the kernels (and memsets) that ``fn`` itself launches: ``parts`` maps a
     part's name to substrings of its kernels' names; what matches none is
-    ``other_ms``. A trace that holds no device row at all (the profiler
-    lost its device buffers) is taken again, up to ``tries`` times; the
-    callers' checks on the parts then apply to the trace that has rows."""
+    ``other_ms``. A trace in which a part of ``need`` (default: every
+    part) has no device row (the profiler lost rows of its device
+    buffers) is taken again, up to ``tries`` times; the callers' checks on
+    the parts then apply to the last trace taken."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    need = set(parts if need is None else need)
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
@@ -398,7 +436,9 @@ def parts_ms(fn, parts: dict, reps: int = 5, tries: int = 3) -> dict:
             torch.cuda.synchronize()
         rows = [e for e in prof.events()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        if rows:
+        seen = {name for e in rows for name, keys in parts.items()
+                if any(k in e.name for k in keys)}
+        if seen >= need:
             break
     out = {name: 0.0 for name in (*parts, "other_ms")}
     for e in rows:
@@ -482,10 +522,10 @@ def phase_small(seed_steps: int) -> None:
         compare_small_tick(cpu, gpu, stage)
 
 
-def check_first_k(what: str, mask, k: int, faster: bool = True) -> dict:
+def check_first_k(what: str, mask, k: int) -> dict:
     """first_k at one shape: exactly equal to the plain version and to
     ``torch.nonzero`` + pad, its two launches the only kernels of its calls,
-    and with ``faster`` faster than the library; its times and bound."""
+    and faster than the library; its times and bound."""
     import torch
 
     from d3human_tpu_torch.ops import compaction
@@ -514,19 +554,23 @@ def check_first_k(what: str, mask, k: int, faster: bool = True) -> dict:
           and parts["other_ms"] == 0,
           f"first_k {what}: the profiler's kernel rows {parts}")
     b, by = bound_ms(n * 1 + k * 4)
-    out = dict(
+    # the wrapper's and the library's eager times in turns, each the least
+    # of three means of 10 calls: both are host-bound at these sizes, and
+    # one stall of the host inside one mean does not decide the comparison
+    trials = [(cuda_ms(lambda: fk(mask, k, n)), cuda_ms(library))
+              for _ in range(3)]
+    ms, library_ms = (min(t) for t in zip(*trials))
+    check(ms < library_ms, f"first_k {what}: slower than torch.nonzero + "
+          f"pad (ms, library ms of three trials: {trials})")
+    return dict(
         call=what, n=n, k=k, set=int(mask.sum()), bound_ms=b, bound_by=by,
-        launches_per_call=compaction.LAUNCHES, max_abs_err=0.0,
-        ms=cuda_ms(lambda: fk(mask, k, n)),
+        launches_per_call=compaction.LAUNCHES, max_abs_err=0.0, ms=ms,
         device_ms=graph_ms(lambda: fk(mask, k, n)),
         # 20 calls a replay: one call's device time after another's
         device_ms_back_to_back=graph_ms(lambda: fk(mask, k, n), calls=20),
         **parts,
         plain_ms=cuda_ms(lambda: compaction.first_k_plain(mask, k, n)),
-        library_ms=cuda_ms(library))
-    check(not faster or out["ms"] < out["library_ms"],
-          f"first_k {what}: slower than torch.nonzero + pad")
-    return out
+        library_ms=library_ms)
 
 
 def check_scatter(what: str, idx, live, C: int, rows_out: int, srt: bool,
@@ -582,7 +626,8 @@ def check_scatter(what: str, idx, live, C: int, rows_out: int, srt: bool,
     # the parts, on the wrapper's own calls; a sorted call has no key
     # preparation and no sort
     parts = parts_ms(lambda: scatter.coo_scatter_add(
-        idx, vals, rows_out, sorted_idx=srt), SCATTER_PARTS)
+        idx, vals, rows_out, sorted_idx=srt), SCATTER_PARTS,
+        need=("sum_ms",) if srt else None)
     check(parts["sum_ms"] > 0 and (parts["prep_sort_ms"] > 0) != srt,
           f"scatter {what}: the profiler's kernel rows {parts}")
     b, by = bound_ms(N * 4 * (1 + C) + rows_out * 4 * C)
@@ -605,8 +650,10 @@ def check_scatter(what: str, idx, live, C: int, rows_out: int, srt: bool,
         prep_sort_plain_ms=graph_ms(lambda: scatter.sort_rows_plain(
             idx, rows_out, srt)),
         library_device_ms=graph_ms(library),
+        # one call: the plain version ran just above (warm) and takes
+        # 0.07-0.8 s at these shapes
         plain_ms=cuda_ms(lambda: scatter.coo_scatter_add_plain(
-            idx, vals, rows_out, srt), reps=2, warm=1),
+            idx, vals, rows_out, srt), reps=1, warm=0),
         library_ms=cuda_ms(library))
     check(not faster or out["ms"] < out["library_ms"],
           f"scatter {what}: slower than index_add_")
@@ -649,8 +696,9 @@ def check_resolve(binned, n_faces: int, floor=None):
     ranges = dict(counts=binned.counts, global_range=binned.global_range)
     live_slots = int((binned.all_faces < n_faces).sum())
     want = rr.resolve_tiles_plain(tile_rows, tile, ntx, floor=floor)
+    # one call, as the scatter's: the plain scan ran just above
     plain_ms = cuda_ms(lambda: rr.resolve_tiles_plain(
-        tile_rows, tile, ntx, floor=floor), reps=2, warm=1)
+        tile_rows, tile, ntx, floor=floor), reps=1, warm=0)
     plain_ranges = rr.resolve_tiles_plain(tile_rows, tile, ntx,
                                           floor=floor, **ranges)
     check(torch.equal(plain_ranges, want),
@@ -755,10 +803,8 @@ def phase_kernels(sc: dict) -> list:
         ("aa pairs x", aa_pair_candidates(rast, 1, 0.01).reshape(-1), aa_k),
         ("aa pairs y", aa_pair_candidates(rast, 0, 0.01).reshape(-1), aa_k),
     ]]
-    # the seq shapes are timed beside the library, not held to it
     fk_seq = check_first_k("seq covered pixels",
-                           (seq["rast"].tri_id > 0).reshape(-1), seq["P"],
-                           faster=False)
+                           (seq["rast"].tri_id > 0).reshape(-1), seq["P"])
     emit("kernel_first_k", exact=True, tile_bytes=compaction.TILE_BYTES,
          calls=fk_times + [fk_seq])
     big = fk_times[0]
@@ -1437,12 +1483,13 @@ def check_scatter_values(what: str, idx, vals, rows_out: int,
 def check_recorded(label: str, inputs: dict, gen) -> dict:
     """The kernels at inputs recorded by ``recording_kernel_inputs``,
     outside the counted runs: first_k at each call site's biggest call
-    (exactly equal to its plain version), the scatter at each site's
-    biggest call on the site's indices with random rows, as at every other
-    shape, and on its recorded rows, the resolve at each site's biggest
-    binning (exactly equal to the plain full scan, with its floor where it
-    had one); timed beside the library and not held to it. Returns
-    {kernel: {site: report}}."""
+    (exactly equal to its plain version and faster than the library), the
+    scatter at each site's biggest call on the site's indices with random
+    rows, as at every other shape, and on its recorded rows, the resolve
+    at each site's biggest binning (exactly equal to the plain full scan,
+    with its floor where it had one); the scatter and the resolve timed
+    beside the library and not held to it (ROADMAP Queue 2 item 8).
+    Returns {kernel: {site: report}}."""
     import torch
 
     from d3human_tpu_torch.ops.rasterizer import Binned
@@ -1453,7 +1500,7 @@ def check_recorded(label: str, inputs: dict, gen) -> dict:
         mask, k, fill = s["args"]
         check(fill == mask.numel(), f"first_k at {site}: fill {fill}")
         out["first_k_indices"][site] = check_first_k(
-            f"{label} {site}", mask, k, faster=False)
+            f"{label} {site}", mask, k)
     for site, s in inputs.get("coo_scatter_add", {}).items():
         idx, vals, out_rows, srt = s["args"]
         what = f"{label} {site}"
@@ -1524,27 +1571,29 @@ def phase_surgery_kernels(rows: list, inputs: dict, ssc: dict) -> None:
         n_global=stats["n_global"], longest_list=stats["longest_list"])
 
 
-def phase_cli_kernels(rows: list, inputs: dict) -> None:
-    """The kernels at the CLI run's own inputs (``check_recorded``: every
+def phase_cli_kernels(rows: list, inputs: dict, key: str = "cli") -> None:
+    """The kernels at a CLI run's own inputs (``check_recorded``: every
     first_k and scatter call site's biggest call of the run, each stage's
-    biggest resolve call, the seq stage's on the seq template's binning).
-    Adds to those kernels' rows a ``cli`` entry."""
+    biggest resolve call, the seq stage's on the seq template's binning):
+    phase ``<key>_kernels``. Adds to those kernels' rows a ``key`` entry
+    (``cli`` for the synthetic run, ``capture`` for the capture's)."""
     import torch
 
+    phase = f"{key}_kernels"
     check(set(inputs) == {"first_k_indices", "coo_scatter_add",
                           "resolve_tiles_indexed"},
-          f"cli_kernels: recorded calls of {sorted(inputs)}")
-    got = check_recorded("cli", inputs, torch.Generator(
+          f"{phase}: recorded calls of {sorted(inputs)}")
+    got = check_recorded(key, inputs, torch.Generator(
         device="cuda").manual_seed(4))
     check(any(site.endswith(" seq") for site in got["resolve_tiles_indexed"]),
-          "cli_kernels: no resolve call of the seq stage")
-    emit("cli_kernels", exact_first_k_and_resolve=True,
+          f"{phase}: no resolve call of the seq stage")
+    emit(phase, exact_first_k_and_resolve=True,
          scatter_tolerance="rel 1e-5 abs 1e-6",
          calls_by_site={k: {site: s["calls"] for site, s in v.items()}
                         for k, v in inputs.items()},
          first_k=got["first_k_indices"], scatter=got["coo_scatter_add"],
          resolve=got["resolve_tiles_indexed"])
-    add_recorded_rows(rows, "cli", got)
+    add_recorded_rows(rows, key, got)
 
 
 def phase_surgery(sc: dict, out_dir: str) -> dict:
@@ -1776,14 +1825,18 @@ class _Tee:
 
 @contextlib.contextmanager
 def instrumented_cli(device: str):
-    """The CLI module with its stage drivers, its step builder and the
-    synthetic ground truth wrapped: per stage the seconds, the peak memory,
-    the kernel counts, every step's and every ground-truth render's time
-    (CUDA events on the card) and the number of steps. Yields (module,
-    record); the wrappers are removed on exit."""
+    """The CLI module with its stage drivers, its step builder and its
+    data wrapped: per stage the seconds, the peak memory, the kernel
+    counts, every step's and every target's time (the synthetic ground
+    truth's render or the capture's ``frame_target``, without the
+    background that the CLI composites after it) on the device's clock
+    (CUDA events on the card) and on the host's, every capture decode's
+    host time, and the number of steps.
+    Yields (module, record); the wrappers are removed on exit."""
     import torch
 
     import d3human_tpu_torch.train_d3h as cli
+    from d3human_tpu_torch.data.dataset import FrameDataset
     from d3human_tpu_torch.data.synthetic import SyntheticScene
 
     cuda = torch.device(device).type == "cuda"
@@ -1803,13 +1856,16 @@ def instrumented_cli(device: str):
 
     def stage_rec():
         return rec["stages"].setdefault(rec["current"] or "startup", dict(
-            steps=[], gt=[]))
+            steps=[], gt=[], gt_host=[], decode=[]))
 
     def timing(fn, key, count=False):
         def run(*args, **kw):
-            t0 = clock()
+            h0, t0 = time.perf_counter(), clock()
             out = fn(*args, **kw)
-            stage_rec()[key].append((t0, clock()))
+            r = stage_rec()
+            r[key].append((t0, clock()))
+            if key == "gt":
+                r["gt_host"].append((h0, time.perf_counter()))
             if count:
                 rec["steps"] += 1
             return out
@@ -1837,27 +1893,43 @@ def instrumented_cli(device: str):
             return out
         return run
 
+    def decoding(fn):
+        """The host's clock around a decode that is not the kept frame."""
+        def run(self, idx):
+            kept = self._last[0] == idx
+            t0 = time.perf_counter()
+            out = fn(self, idx)
+            if not kept:
+                stage_rec()["decode"].append((t0, time.perf_counter()))
+            return out
+        return run
+
     orig = (cli.make_train_step, cli.run_stage, cli.run_seq_stage,
-            SyntheticScene.frame_target)
+            SyntheticScene.frame_target, FrameDataset.frame_target,
+            FrameDataset.decode)
     cli.make_train_step = lambda *a, **kw: timing(orig[0](*a, **kw), "steps",
                                                    count=True)
     cli.run_stage = driver(orig[1], lambda a: a[0])
     cli.run_seq_stage = driver(orig[2], lambda a: "seq")
     SyntheticScene.frame_target = timing(orig[3], "gt")
+    FrameDataset.frame_target = timing(orig[4], "gt")
+    FrameDataset.decode = decoding(orig[5])
     try:
         yield cli, rec
     finally:
         (cli.make_train_step, cli.run_stage, cli.run_seq_stage,
-         SyntheticScene.frame_target) = orig
+         SyntheticScene.frame_target, FrameDataset.frame_target,
+         FrameDataset.decode) = orig
 
 
 def _ms(device, pairs) -> list:
+    """Milliseconds of (start, end) pairs: CUDA events or host clocks."""
     import torch
 
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
-        return [a.elapsed_time(b) for a, b in pairs]
-    return [(b - a) * 1e3 for a, b in pairs]
+    return [(b - a) * 1e3 if isinstance(a, float) else a.elapsed_time(b)
+            for a, b in pairs]
 
 
 def run_cli(cli, argv: list, parity_samples) -> str:
@@ -1880,20 +1952,25 @@ def _read_jsonl(path: str) -> list:
         return [json.loads(line) for line in fh if line.strip()]
 
 
-def phase_cli(scale: str, device: str, root: str) -> dict:
-    """The port's CLI in this process, ``main(argv)`` with ``--synthetic
-    --stages split_smpl,init,split,seq --device <device>`` on a copy of
-    the scale's config with its cuts, into a fresh out dir under
-    ``root``; then once more with ``--resume``, which must run no step,
-    reuse the host surgery's outputs and keep PARITY.json's entries.
-    Returns what it emits (the first run's kernel launches and calls
-    among it), the out dir and the first run's kernel inputs by call site
-    (``recording_kernel_inputs``)."""
+def phase_cli(scale: str, device: str, root: str,
+              capture: str = None) -> dict:
+    """The port's CLI in this process, ``main(argv)`` with ``--stages
+    split_smpl,init,split,seq --device <device>`` on a copy of the scale's
+    config with its cuts, into a fresh out dir under ``root``: on the
+    synthetic scene (``--synthetic``, phase ``cli``), then once more with
+    ``--resume``, which must run no step, reuse the host surgery's outputs
+    and keep PARITY.json's entries; or, with ``capture`` (the root of a
+    layout that ``phase_capture_export`` wrote), on that capture (phase
+    ``capture_cli``). Returns what it emits (the first run's kernel
+    launches and calls among it), the out dir and the first run's kernel
+    inputs by call site (``recording_kernel_inputs``)."""
     import shutil
 
     from d3human_tpu_torch.config import load_config
+    from d3human_tpu_torch.utils import io as mesh_io
 
     s = CLI_SCALES[scale]
+    name = "cli" if capture is None else "capture_cli"
     cuda = device == "cuda"
     here = os.path.dirname(os.path.abspath(__file__))
     shutil.rmtree(root, ignore_errors=True)
@@ -1912,8 +1989,10 @@ def phase_cli(scale: str, device: str, root: str) -> dict:
     cuts = {f"{sec}.{k}": [getattr(getattr(c, sec), k)
                            for c in (src_cfg, cfg)] for sec, k in cuts}
     out_dir = os.path.join(root, "out")
-    argv = ["--config", cfg_path, "--out-dir", out_dir, "--synthetic",
-            "--synthetic-frames", str(s["frames"]), "--stages",
+    data = (["--synthetic", "--synthetic-frames", str(s["frames"])]
+            if capture is None else
+            ["--trainset_path", capture, "--folder_name", CAPTURE_FOLDER])
+    argv = ["--config", cfg_path, "--out-dir", out_dir, *data, "--stages",
             "split_smpl,init,split,seq", "--iters-scale",
             str(s["iters_scale"]), "--device", device]
 
@@ -1939,50 +2018,67 @@ def phase_cli(scale: str, device: str, root: str) -> dict:
         phase_peak = max(rec["peak_gib"] or 0.0, peak_gib(device) or 0.0) \
             if cuda else None
         stages = {}
-        for name, r in rec["stages"].items():
-            steps, gt = _ms(device, r["steps"]), _ms(device, r["gt"])
-            stages[name] = dict(
+        for stage, r in rec["stages"].items():
+            steps, data_ms = _ms(device, r["steps"]), _ms(device, r["gt"])
+            st = dict(
                 iterations=len(steps), seconds=r.get("seconds"),
                 mean_step_ms=sum(steps) / len(steps) if steps else None,
-                step_ms=steps, gt_renders=len(gt),
-                mean_gt_ms=sum(gt) / len(gt) if gt else None,
-                peak_mem_gib=r.get("peak_mem_gib"),
+                step_ms=steps, peak_mem_gib=r.get("peak_mem_gib"),
                 launches=r.get("launches"), calls=r.get("calls"))
+            mean_data = sum(data_ms) / len(data_ms) if data_ms else None
+            if capture is None:
+                st.update(gt_renders=len(data_ms), mean_gt_ms=mean_data)
+            else:
+                dec, host = _ms("cpu", r["decode"]), _ms("cpu", r["gt_host"])
+                st.update(data_reads=len(data_ms), mean_data_ms=mean_data,
+                          mean_data_host_ms=(
+                              sum(host) / len(host) if host else None),
+                          decodes=len(dec), mean_decode_ms=(
+                              sum(dec) / len(dec) if dec else None))
+            stages[stage] = st
         first_steps = rec["steps"]
-    check("[done]" in text.split("\n"), "cli: no [done] line")
-    for name, want in expect.items():
-        got = stages.get(name, {}).get("iterations")
-        check(got == want, f"cli: {name} ran {got} steps, expected {want}")
+    check("[done]" in text.split("\n"), f"{name}: no [done] line")
+    for stage, want in expect.items():
+        got = stages.get(stage, {}).get("iterations")
+        check(got == want, f"{name}: {stage} ran {got} steps, expected "
+              f"{want}")
     join = os.path.join
-    for name, d in CLI_STAGE_DIRS.items():
+    for stage, d in CLI_STAGE_DIRS.items():
         lines = _read_jsonl(join(out_dir, d, "loss_log", "scalars.jsonl"))
         tot = [ln for ln in lines if "total" in ln]
-        check(len(tot) > 0, f"cli: {name} logged no loss")
+        check(len(tot) > 0, f"{name}: {stage} logged no loss")
         for ln in lines:
             for k, v in ln.items():
                 if "loss" in k or k == "total":
-                    check(math.isfinite(v), f"cli: {name} {k} = {v}")
-        stages[name]["losses_logged"] = tot[-1]
-        stages[name]["validation"] = [
+                    check(math.isfinite(v), f"{name}: {stage} {k} = {v}")
+        stages[stage]["losses_logged"] = tot[-1]
+        stages[stage]["validation"] = [
             {k: v for k, v in ln.items() if k.startswith("val_")}
             for ln in lines if any(k.startswith("val_") for k in ln)]
-    for name in ("split_smpl", "init", "split"):
-        fm = join(out_dir, CLI_STAGE_DIRS[name], "validate",
+    for stage in ("split_smpl", "init", "split"):
+        fm = join(out_dir, CLI_STAGE_DIRS[stage], "validate",
                   "final_metrics.json")
-        check(os.path.exists(fm), f"cli: no {fm}")
+        check(os.path.exists(fm), f"{name}: no {fm}")
+    halves = {}
+    for half in ("cloth", "body"):
+        _, f = mesh_io.load_obj(join(out_dir, CLI_STAGE_DIRS["split"],
+                                     f"split_{half}_imesh_final.obj"))
+        halves[half] = len(f)
+        check(len(f) > 0, f"{name}: the split stage's {half} half is empty")
     for f in range(n_seq):
-        for p in (join(out_dir, "seq", "delta", f"{f}.npz"),
-                  join(out_dir, "seq", f"fine_all_{f}.ply")):
-            check(os.path.exists(p), f"cli: no {p}")
+        for path in (join(out_dir, "seq", "delta", f"{f}.npz"),
+                     join(out_dir, "seq", f"fine_all_{f}.ply")):
+            check(os.path.exists(path), f"{name}: no {path}")
     with open(join(out_dir, "PARITY.json")) as fh:
         parity = json.load(fh)["stages"]
-    check(set(parity) >= {"split_smpl", "init", "split",
-                          "seq_template_frame0", "seq"},
-          f"cli: PARITY.json holds {sorted(parity)}")
+    want_parity = {"split_smpl", "init", "split"} | (
+        {"seq_template_frame0", "seq"} if capture is None else set())
+    check(set(parity) >= want_parity,
+          f"{name}: PARITY.json holds {sorted(parity)}")
     launches = {k: v for k, v in counts.items() if k != "calls"}
     for k in ("first_k_indices", "coo_scatter_add", "resolve_tiles"):
         check(not cuda or launches[k] > 0,
-              f"cli: {k} never launched ({launches})")
+              f"{name}: {k} never launched ({launches})")
     # every counted call went through a recorded call site (a resolve call
     # is one launch)
     recorded = {k: sum(r["calls"] for r in v.values())
@@ -1992,18 +2088,33 @@ def phase_cli(scale: str, device: str, root: str) -> dict:
                    resolve_tiles_indexed=launches["resolve_tiles"]
                    + launches["resolve_tiles_peel"])
     check(not cuda or recorded == counted,
-          f"cli: recorded calls {recorded}, counted {counted}")
+          f"{name}: recorded calls {recorded}, counted {counted}")
     # the copies of the recorded calls stay on the device during the run,
     # inside the peaks above
     recorded_gib = sum(
         x.numel() * x.element_size() for v in inputs.values()
         for r in v.values() for x in _tensors(r["args"])) / 2 ** 30
+    calls = counts.pop("calls")
+    out = dict(scale=scale, config=s["config"], cuts=cuts,
+               frames=s["frames"], iters_scale=s["iters_scale"],
+               argv=argv, seconds=total_s, steps=first_steps,
+               peak_mem_gib=phase_peak, recorded_inputs_gib=recorded_gib,
+               recorded_calls=recorded, stages=stages, launches=counts,
+               calls=calls, split_faces=halves, parity=parity)
+    if capture is None:
+        out["resume"] = resume_cli(argv, s["parity_samples"], parity, device)
+    emit(name, **out)
+    return dict(out, out_dir=out_dir, inputs=inputs)
 
-    # ---- the same command with --resume: every stage is complete
+
+def resume_cli(argv: list, parity_samples, parity: dict, device) -> dict:
+    """The CLI's command again with ``--resume`` after a finished run: no
+    training step, the close hole and the merge reused, every PARITY.json
+    entry kept."""
     with instrumented_cli(device) as (cli, rec):
         reset_counts()
         t0 = time.perf_counter()
-        text_r = run_cli(cli, argv + ["--resume"], s["parity_samples"])
+        text_r = run_cli(cli, argv + ["--resume"], parity_samples)
         resume_s = time.perf_counter() - t0
         resume_counts = read_counts()
         check(rec["steps"] == 0,
@@ -2013,22 +2124,408 @@ def phase_cli(scale: str, device: str, root: str) -> dict:
     for what in ("[close_hole] resume: reusing", "[merge] resume: reusing"):
         check(any(ln.startswith(what) for ln in lines_r),
               f"cli --resume: no '{what}' line")
-    with open(join(out_dir, "PARITY.json")) as fh:
+    out_dir = argv[argv.index("--out-dir") + 1]
+    with open(os.path.join(out_dir, "PARITY.json")) as fh:
         parity_r = json.load(fh)["stages"]
     check(set(parity_r) >= set(parity),
           f"cli --resume: PARITY.json {sorted(parity_r)}")
-    calls = counts.pop("calls")
-    out = dict(scale=scale, config=s["config"], cuts=cuts,
-               synthetic_frames=s["frames"], iters_scale=s["iters_scale"],
-               argv=argv, seconds=total_s, steps=first_steps,
-               peak_mem_gib=phase_peak, recorded_inputs_gib=recorded_gib,
-               recorded_calls=recorded, stages=stages, launches=counts,
-               calls=calls, parity=parity, resume=dict(
-                   seconds=resume_s, steps=0, parity_kept=sorted(parity_r),
-                   launches={k: v for k, v in resume_counts.items()
-                             if k != "calls"}))
-    emit("cli", **out)
-    return dict(out, out_dir=out_dir, inputs=inputs)
+    return dict(seconds=resume_s, steps=0, parity_kept=sorted(parity_r),
+                launches={k: v for k, v in resume_counts.items()
+                          if k != "calls"})
+
+
+# ---------------------------------------------------------------- captures
+
+# the layout that the port's exporter writes at each scale: the CLI
+# scale's training resolution and frame count, the body model of the
+# capture_data phase's SMPL-X check (vertices and faces; 55 joints,
+# shapedirs [V, 3, 400], posedirs [V, 3, 486] at every scale)
+CAPTURE_SCALES = {"full": dict(res=1080, body=(10475, 20908)),
+                  "tiny": dict(res=48, body=(400, 796))}
+CAPTURE_DIR = "d3human_tpu_torch/build/smoke_capture"
+CAPTURE_FOLDER = "neutral-synth"
+# the layout's round trip against the scene (the JAX package's bounds,
+# tests/test_reference_layout.py:56-68): mvp, mask IoU (above), rgb,
+# normals
+ROUND_TRIP = dict(mvp=1e-4, iou=0.99, rgb=0.02, normal=0.05)
+BODY_RTOL = 1e-5         # the body model on the card against the CPU
+
+
+def encode_png(path: str, img, filter_type=0, palette=None, trns=None,
+               interlace: int = 0) -> None:
+    """A PNG of ``img`` with the scanline filter ``filter_type`` (0 None,
+    1 Sub, 2 Up, 3 Average, 4 Paeth; or one type per row): uint8 [H, W]
+    grey, [H, W, 2|3|4] grey + alpha, RGB, RGBA, or uint16 (16-bit).
+    With ``palette`` [n, 3] ``img`` holds its indices (colour type 3),
+    with ``trns`` the palette's alphas. ``interlace`` is only written to
+    the header (a reader must refuse it)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    a = np.asarray(img)
+    depth = 16 if a.dtype == np.uint16 else 8
+    H, W = a.shape[:2]
+    C = 1 if a.ndim == 2 else a.shape[2]
+    color = 3 if palette is not None else {1: 0, 2: 4, 3: 2, 4: 6}[C]
+    raw = np.ascontiguousarray(a.astype(">u2" if depth == 16 else np.uint8))
+    x = raw.reshape(H, -1).view(np.uint8).astype(np.int16)
+    bpp = C * depth // 8
+    left, up, upleft = (np.zeros_like(x) for _ in range(3))
+    left[:, bpp:], up[1:] = x[:, :-bpp], x[:-1]
+    upleft[1:, bpp:] = x[:-1, :-bpp]
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, up, upleft))
+    preds = np.stack([np.zeros_like(x), left, up, (left + up) >> 1, paeth])
+    ft = np.broadcast_to(np.asarray(filter_type, np.uint8), (H,))
+    rows = ((x - preds[ft, np.arange(H)]) % 256).astype(np.uint8)
+    data = np.concatenate([ft[:, None], rows], 1).tobytes()
+
+    def chunk(tag: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + tag + body
+                + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, depth, color,
+                                           0, 0, interlace)))
+        if palette is not None:
+            f.write(chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes()))
+        if trns is not None:
+            f.write(chunk(b"tRNS", np.asarray(trns, np.uint8).tobytes()))
+        f.write(chunk(b"IDAT", zlib.compress(data, 6)))
+        f.write(chunk(b"IEND", b""))
+
+
+def write_smplx_npz(path: str, V: int, F: int, seed: int = 0) -> None:
+    """A seeded body model in the official SMPLX_<GENDER>.npz layout at
+    ``V`` vertices and ``F`` faces: 55 joints (SMPL-X's tree, the root's
+    parent stored as uint32 -1), shapedirs [V, 3, 400] (300 shape and 100
+    expression columns), posedirs [V, 3, 486], a normalised regressor and
+    normalised skinning weights. Random values: it checks the widths, not
+    a body."""
+    import numpy as np
+
+    from d3human_tpu_torch.models.smplx.model import SMPLX_PARENTS
+
+    rng = np.random.default_rng(seed)
+    J = len(SMPLX_PARENTS)
+    reg = rng.random((J, V), np.float32) ** 8
+    w = rng.random((V, J), np.float32) ** 8
+    kintree = np.stack([np.asarray(SMPLX_PARENTS, np.int64), np.arange(J)])
+    kintree[0, 0] = 2 ** 32 - 1
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez(path,
+             v_template=(rng.normal(size=(V, 3)) * 0.3).astype(np.float32),
+             shapedirs=(rng.normal(size=(V, 3, 400)) * 1e-3).astype(
+                 np.float32),
+             posedirs=(rng.normal(size=(V, 3, (J - 1) * 9)) * 1e-3).astype(
+                 np.float32),
+             J_regressor=reg / reg.sum(1, keepdims=True),
+             weights=w / w.sum(1, keepdims=True),
+             f=rng.integers(0, V, (F, 3)).astype(np.int64),
+             kintree_table=kintree)
+
+
+def phase_capture_export(scale: str, device: str, root: str) -> dict:
+    """The port's exporter (``python -m
+    d3human_tpu_torch.scripts.export_reference_layout``) writes the
+    synthetic scene at the scale's resolution and the CLI scale's frame
+    count into a fresh ``root``: seconds, files and bytes."""
+    import shutil
+
+    from d3human_tpu_torch.scripts import export_reference_layout as exporter
+
+    s = CAPTURE_SCALES[scale]
+    frames = CLI_SCALES[scale]["frames"]
+    shutil.rmtree(root, ignore_errors=True)
+    rc, secs = timed(device, lambda: exporter.main(
+        ["--out", root, "--folder", CAPTURE_FOLDER, "--res", str(s["res"]),
+         "--frames", str(frames), "--device", device]))
+    check(rc == 0, f"capture_export: exit {rc}")
+    files = [os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs]
+    png = [f for f in files if f.endswith(".png")]
+    check(len(png) == 5 * frames, f"capture_export: {len(png)} PNG files")
+    out = dict(resolution=[s["res"], s["res"]], frames=frames, seconds=secs,
+               files=len(files), bytes=sum(map(os.path.getsize, files)),
+               png_bytes=sum(map(os.path.getsize, png)))
+    emit("capture_export", **out)
+    return out
+
+
+def _host_ms(fn, reps: int = 1):
+    """(fn(), mean host milliseconds over ``reps`` calls)."""
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    return out, (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _dev_ms(device, fn, reps: int = 5) -> float:
+    """Mean milliseconds of ``fn``: CUDA events on the card, the host's
+    clock on the CPU."""
+    if device == "cuda":
+        return cuda_ms(fn, reps=reps, warm=1)
+    fn()
+    return _host_ms(fn, reps)[1]
+
+
+def write_source_2x(ds, dst: str, seed: int = 0) -> None:
+    """A one-frame layout under ``dst`` at twice ``ds``'s resolution, the
+    size its cameras.npz records: each file of ``ds``'s first frame with
+    every pixel p turned into the 2x2 block [[p + e, p - e], [p - e, p +
+    e]], e drawn in [0, 2] and kept within [0, 255], so that the exact 2x
+    resize gives p back; written with the five scanline filters in turn
+    by row; ``smplx/`` copied, key.list 0 1."""
+    import shutil
+
+    import numpy as np
+
+    from d3human_tpu_torch.data.dataset import _FOLDERS
+    from d3human_tpu_torch.utils.io import load_image
+
+    rng = np.random.default_rng(seed)
+    shutil.rmtree(dst, ignore_errors=True)
+    idx = ds.key_frame[0]
+    for k, d in _FOLDERS.items():
+        a = load_image(ds.lists[k][idx]).astype(np.int16)
+        e = np.minimum(rng.integers(0, 3, a.shape), np.minimum(a, 255 - a))
+        up, de = (np.repeat(np.repeat(x, 2, 0), 2, 1) for x in (a, e))
+        yy, xx = np.indices(up.shape[:2])
+        sign = np.where((yy + xx) % 2 == 0, 1, -1).astype(np.int16)
+        if up.ndim == 3:
+            sign = sign[..., None]
+        os.makedirs(os.path.join(dst, d))
+        encode_png(os.path.join(dst, d, "000000.png"),
+                   (up + de * sign).astype(np.uint8),
+                   np.arange(up.shape[0]) % 5)
+    shutil.copytree(os.path.join(ds.base_dir, "smplx"),
+                    os.path.join(dst, "smplx"))
+    with open(os.path.join(dst, "key.list"), "w") as fh:
+        fh.write("0\n1\n")
+
+
+def phase_capture_data(scale: str, device: str, root: str) -> dict:
+    """The capture data path on the layout under ``root``:
+    - ``FrameDataset`` at the scale's resolution: every frame's host decode
+      and device preprocessing (ms), and its targets against the synthetic
+      scene's ``frame_target`` under the exporter's camera within
+      ``ROUND_TRIP``;
+    - frame 0 at the camera's own size (twice the resolution, as real
+      captures are; ``write_source_2x``): host decode and device
+      preprocessing (ms), its targets equal to frame 0's bit for bit (the
+      exact 2x resize), and ``_resize`` on the device equal to the CPU's
+      on each of its images and on a random image of that size;
+    - ``load_image`` on frame 0's RGB image re-encoded with each scanline
+      filter (0-4, and one per row in turn): exactly the image (ms a
+      decode);
+    - the frame cache: built from the dataset, read through the native
+      library, within 2e-3 of ``frame_target`` (``GT_TOL``; ms a frame,
+      MiB);
+    - a seeded body model in the official SMPL-X npz layout at the scale's
+      size (SMPL-X's 10,475 vertices and 20,908 faces at full scale):
+      ``load_smplx_npz`` and ``forward`` on the device against the CPU
+      within rel ``BODY_RTOL``, and the time of the canonical weight
+      transfer of the CLI scale's lattice to its vertices."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from d3human_tpu_torch.config import load_config
+    from d3human_tpu_torch.data.dataset import FrameDataset, _resize
+    from d3human_tpu_torch.data.frame_cache import (
+        FrameCacheReader, build_cache,
+    )
+    from d3human_tpu_torch.data.synthetic import make_scene
+    from d3human_tpu_torch.models.smplx.deformer import SMPLXDeformer
+    from d3human_tpu_torch.models.smplx.model import load_smplx_npz
+    from d3human_tpu_torch.ops.tet_grid import make_tet_grid
+    from d3human_tpu_torch.render.camera import camera_matrices
+    from d3human_tpu_torch.utils.io import load_image
+
+    s = CAPTURE_SCALES[scale]
+    res = (s["res"], s["res"])
+    frames = CLI_SCALES[scale]["frames"]
+    base = os.path.join(root, CAPTURE_FOLDER)
+    ds = FrameDataset(base, res, device=device)
+    check(ds.n_images == frames, f"capture_data: {ds.n_images} frames")
+
+    # ---- the dataset against the scene under the exporter's camera
+    cam = np.load(os.path.join(base, "smplx", "cameras.npz"))
+    mv, mvp, campos = camera_matrices(cam["intrinsic"], cam["extrinsic"],
+                                      int(cam["height"]), int(cam["width"]))
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    scene = dataclasses.replace(
+        make_scene(res, n_frames=frames, device=device), mv=t(mv),
+        mvp=t(mvp), campos=t(campos))
+    ds.decode(ds.key_frame[frames - 1])          # builds the native reader
+    decode_ms, prep_ms = [], []
+    err = dict(mvp=0.0, rgb=0.0, normal=0.0)
+    iou = {}
+    for i in range(frames):
+        imgs, ms = _host_ms(lambda: ds.decode(ds.key_frame[i]))
+        decode_ms.append(ms)
+        got, secs = timed(device, lambda: ds.preprocess(imgs))
+        prep_ms.append(secs * 1e3)
+        want = scene.frame_target(i)
+        err["mvp"] = max(err["mvp"], float((ds.mvp - want["mvp"]).abs().max()))
+        err["rgb"] = max(err["rgb"], float(
+            (got["all_img"][..., :3] - want["all_img"][..., :3]).abs().max()))
+        err["normal"] = max(err["normal"], float(
+            (got["all_normal"] - want["all_normal"]).abs().max()))
+        for k in ("all_img", "body_img", "cloth_img"):
+            a, b = got[k][..., 3] > 0.5, want[k][..., 3] > 0.5
+            r = float((a & b).sum()) / max(float((a | b).sum()), 1.0)
+            iou[k] = min(iou.get(k, 1.0), r)
+    for k in ("mvp", "rgb", "normal"):
+        check(err[k] < ROUND_TRIP[k],
+              f"capture_data: {k} {err[k]} from the scene")
+    check(min(iou.values()) > ROUND_TRIP["iou"],
+          f"capture_data: mask IoU {iou}")
+
+    # ---- frame 0 at the camera's own size, resized 2x on the device
+    src2 = os.path.join(root, "source_2x")
+    write_source_2x(ds, src2)
+    ds2 = FrameDataset(src2, res, device=device)
+    ds2.decode(0)                                   # warm-up
+    decode2_ms, prep2_ms = [], []
+    for _ in range(3):
+        ds2._last = (None, None)
+        imgs2, ms = _host_ms(lambda: ds2.decode(0))
+        decode2_ms.append(ms)
+        got2, secs = timed(device, lambda: ds2.preprocess(imgs2))
+        prep2_ms.append(secs * 1e3)
+    want2 = ds.preprocess(ds.decode(ds.key_frame[0]))
+    for k, v in want2.items():
+        check(torch.equal(got2[k], v),
+              f"capture_data: {k} of the 2x source is not frame 0's")
+    h2, w2 = imgs2["rgb"].shape[:2]
+    check((h2, w2) == (2 * res[0], 2 * res[1]),
+          f"capture_data: the 2x source is {h2} x {w2}")
+    noise = np.random.default_rng(2).integers(0, 256, (h2, w2, 3), np.uint8)
+    for k, a in [*imgs2.items(), ("random", noise)]:
+        x = torch.from_numpy(a)
+        check(torch.equal(_resize(x.to(device), res).cpu(), _resize(x, res)),
+              f"capture_data: _resize of the 2x {k} on {device} is not the "
+              "CPU's")
+
+    # ---- the PNG reader on every scanline filter
+    src_png = ds.lists["rgb"][0]
+    rgb0 = load_image(src_png)
+    filters = {}
+    for name, ft in [(str(f), f) for f in range(5)] + [
+            ("per row", np.arange(res[0]) % 5)]:
+        path = os.path.join(root, f"filter_{name.replace(' ', '_')}.png")
+        encode_png(path, rgb0, ft)
+        back, ms = _host_ms(lambda: load_image(path), reps=3)
+        check(back.dtype == np.uint8 and np.array_equal(back, rgb0),
+              f"capture_data: load_image on filter {name} is not the image")
+        filters[name] = dict(decode_ms=ms, bytes=os.path.getsize(path))
+
+    # ---- the frame cache
+    path = os.path.join(root, "frames.bin")
+    _, build_s = timed(device, lambda: build_cache(ds, path))
+    reader = FrameCacheReader(path, res, device=device)
+    cache_ms, cache_err = [], {}
+    for i in range(frames):
+        got, secs = timed(device, lambda: reader.frame(i))
+        cache_ms.append(secs * 1e3)
+        want = ds.frame_target(i)
+        for k, v in got.items():
+            cache_err[k] = max(cache_err.get(k, 0.0),
+                               float((v - want[k]).abs().max()))
+    reader.close()
+    check(max(cache_err.values()) <= GT_TOL,
+          f"capture_data: the frame cache against frame_target {cache_err}")
+
+    # ---- the body model at SMPL-X's published widths
+    V, F = s["body"]
+    npz_dir = os.path.join(root, "smplx_size")
+    write_smplx_npz(os.path.join(npz_dir, "SMPLX_NEUTRAL.npz"), V, F)
+    (m_dev, load_s), m_cpu = timed(device, lambda: load_smplx_npz(
+        npz_dir, "neutral", device=device)), load_smplx_npz(
+        npz_dir, "neutral", device="cpu")
+    rng = np.random.default_rng(1)
+    B = 2
+    args = {k: rng.normal(size=(B, d)).astype(np.float32) * 0.2 for k, d in (
+        ("root_pose", 3), ("body_pose", 63), ("jaw_pose", 3),
+        ("leye_pose", 3), ("reye_pose", 3), ("lhand_pose", 45),
+        ("rhand_pose", 45), ("transl", 3))}
+    args["betas"] = rng.normal(size=(B, m_cpu.num_betas)).astype(np.float32)
+    args["expression"] = rng.normal(size=(B, m_cpu.num_expr)).astype(
+        np.float32)
+
+    def fwd(m, dev):
+        with torch.no_grad():
+            return m.forward(**{k: torch.as_tensor(v, device=dev)
+                                for k, v in args.items()})
+
+    body_err = {}
+    for name, a, b in zip(("verts", "joints", "A"), fwd(m_dev, device),
+                          fwd(m_cpu, "cpu")):
+        rel = float((a.cpu() - b).abs().max() / b.abs().max())
+        check(rel <= BODY_RTOL, f"capture_data: forward {name} rel {rel}")
+        body_err[name] = rel
+    forward_ms = _dev_ms(device, lambda: fwd(m_dev, device))
+    # the canonical weight transfer of the CLI's lattice (its crop of the
+    # synthetic template, as the CLI builds it) to the model's vertices
+    cli_cfg = load_config(CLI_SCALES[scale]["config"])
+    g = cli_cfg.geometry
+    for sec, vals in CLI_SCALES[scale]["cuts"].items():
+        if sec == "geometry":
+            g = dataclasses.replace(g, **vals)
+    cb = make_scene((8, 8), 1, device="cpu").canon.vs_template[0].numpy()
+    grid = make_tet_grid(res=g.grid_res, y_offset=g.grid_y_offset,
+                         scale=g.grid_scale,
+                         crop_box=(tuple(cb.min(0) - g.grid_crop),
+                                   tuple(cb.max(0) + g.grid_crop)),
+                         device=device)
+    deformer = SMPLXDeformer(m_dev)
+    canon = deformer.initialize(torch.zeros((1, m_dev.num_betas),
+                                            device=device))
+    with torch.no_grad():
+        w = deformer.interpolate_weights(canon, grid.verts)
+        transfer_ms = _dev_ms(device, lambda: deformer.interpolate_weights(
+            canon, grid.verts))
+    check(tuple(w.shape) == (grid.n_verts, m_dev.num_joints)
+          and bool(torch.isfinite(w).all()),
+          f"capture_data: weight transfer {tuple(w.shape)}")
+
+    out = dict(
+        resolution=list(res), frames=frames,
+        decode_ms=decode_ms, mean_decode_ms=sum(decode_ms) / frames,
+        preprocess_ms=prep_ms, mean_preprocess_ms=sum(prep_ms) / frames,
+        round_trip=dict(max_abs_err=err, min_mask_iou=iou,
+                        bounds=ROUND_TRIP),
+        source_2x=dict(
+            resolution=[h2, w2], png_bytes=sum(
+                os.path.getsize(ds2.lists[k][0]) for k in imgs2),
+            upload_mib=sum(a.nbytes for a in imgs2.values()) / 2 ** 20,
+            decode_ms=decode2_ms, mean_decode_ms=sum(decode2_ms) / 3,
+            preprocess_ms=prep2_ms, mean_preprocess_ms=sum(prep2_ms) / 3,
+            targets_equal_frame0=True, resize_equal_cpu=True),
+        png_filters=dict(source=os.path.relpath(src_png, root),
+                         exact=True, by_filter=filters),
+        frame_cache=dict(build_s=build_s, frame_ms=cache_ms,
+                         mean_frame_ms=sum(cache_ms) / frames,
+                         mib=os.path.getsize(path) / 2 ** 20,
+                         max_abs_err=cache_err, tolerance=f"abs {GT_TOL}"),
+        body_model=dict(verts=m_dev.num_verts, faces=int(F),
+                        joints=m_dev.num_joints,
+                        shapedirs=list(m_dev.shapedirs.shape),
+                        posedirs=list(m_dev.posedirs.shape), load_s=load_s,
+                        forward_ms=forward_ms, rel_err=body_err,
+                        rtol=BODY_RTOL, lattice_verts=grid.n_verts,
+                        weight_transfer_ms=transfer_ms))
+    emit("capture_data", **out)
+    return out
 
 
 def _tensors(x):
@@ -2108,11 +2605,23 @@ def main() -> int:
         os.path.dirname(os.path.abspath(__file__)), CLI_DIR))
     paths["cli"] = {k: cli[k] for k in ("launches", "calls")}
     phase_cli_kernels(rows, cli.pop("inputs"))
+    del cli
+    capture_root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                CAPTURE_DIR)
+    phase_capture_export("full", "cuda", capture_root)
+    phase_capture_data("full", "cuda", capture_root)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cap = phase_cli("full", "cuda", os.path.join(capture_root, "cli"),
+                    capture=capture_root)
+    paths["capture"] = {k: cap[k] for k in ("launches", "calls")}
+    phase_cli_kernels(rows, cap.pop("inputs"), "capture")
     for r in rows:
         # launches: the kernel's launches on the driven paths (INIT_STEPS
         # init steps, SPLIT_STEPS split steps, one validation render of
         # each half, the surgery, SURGERY_SEQ_STEPS seq steps on its
-        # template, SEQ_STEPS seq steps, the CLI's first run); first_k
+        # template, SEQ_STEPS seq steps, the CLI's first run on the
+        # synthetic scene and its run on the exported capture); first_k
         # counts its count and write launches, the scatter each launch of
         # its two sum kernels, and their calls are the calls of the wrapper
         for what in ("launches", "calls"):
@@ -2126,6 +2635,7 @@ def main() -> int:
          surgery={"runs": 1}, surgery_seq_step={"steps": SURGERY_SEQ_STEPS},
          seq_step={"steps": SEQ_STEPS},
          cli={"runs": 1, "scale": "full"},
+         capture={"runs": 1, "scale": "full"},
          launches={k: v["launches"] for k, v in paths.items()},
          calls={k: v["calls"] for k, v in paths.items()})
     print(json.dumps({"kernels": rows}), flush=True)

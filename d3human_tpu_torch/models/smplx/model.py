@@ -1,17 +1,28 @@
 """SMPL-X-layout body model (counterpart of
-``d3human_tpu/models/smplx/model.py``): static tables plus ``forward``, and
+``d3human_tpu/models/smplx/model.py``): static tables plus ``forward``;
+the loaders of the official npz releases (``load_smplx_npz`` and
+``create`` for SMPL, SMPL+H, SMPL-X, MANO and FLAME); and
 ``synthetic_body_model``, a copy of the JAX package's small capsule
 humanoid built from a numpy seed (the licensed SMPL-X npz cannot ship)."""
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from d3human_tpu_torch.models.smplx.lbs import lbs
+
+# SMPL-X joint layout (public model topology): 55 joints
+SMPLX_PARENTS = (
+    -1, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 12, 13, 14, 16, 17, 18, 19,
+    15, 15, 15,                                    # jaw, leye, reye
+    20, 25, 26, 20, 28, 29, 20, 31, 32, 20, 34, 35, 20, 37, 38,  # left hand
+    21, 40, 41, 21, 43, 44, 21, 46, 47, 21, 49, 50, 21, 52, 53,  # right hand
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,6 +36,10 @@ class SMPLXModel:
     parents: Tuple[int, ...]
     num_betas: int
     num_expr: int
+
+    @property
+    def num_verts(self) -> int:
+        return self.v_template.shape[0]
 
     @property
     def num_joints(self) -> int:
@@ -67,6 +82,104 @@ class SMPLXModel:
             verts = verts + transl[:, None, :]
             joints = joints + transl[:, None, :]
         return verts, joints, A
+
+
+def _model(data, shapedirs, parents, num_betas, num_expr,
+           device) -> SMPLXModel:
+    """The model of an npz's tables; posedirs [V, 3, P] become [P, V*3]."""
+    posedirs = np.asarray(data["posedirs"], np.float32)
+    if posedirs.ndim == 3:
+        posedirs = posedirs.reshape(-1, posedirs.shape[-1]).T
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                               device=device)
+
+    return SMPLXModel(
+        v_template=t(data["v_template"]), shapedirs=t(shapedirs),
+        posedirs=t(posedirs), J_regressor=t(data["J_regressor"]),
+        lbs_weights=t(data["weights"]),
+        faces=np.asarray(data["f"], np.int64), parents=parents,
+        num_betas=num_betas, num_expr=num_expr)
+
+
+def load_smplx_npz(model_path: str, gender: str = "neutral",
+                   num_betas: int = 100, num_expr: int = 50,
+                   device="cuda") -> SMPLXModel:
+    """The official SMPL-X npz, ``model_path``/SMPLX_<GENDER>.npz:
+    shapedirs [V, 3, 300 + expression] (shape columns, then the expression
+    columns from 300), posedirs [V, 3, P], ``kintree_table`` [2, J] (the
+    parents as stored, SMPL-X's own without it)."""
+    fn = os.path.join(model_path, f"SMPLX_{gender.upper()}.npz")
+    data = np.load(fn, allow_pickle=True)
+    shapedirs = np.asarray(data["shapedirs"], np.float32)
+    n_shape = min(num_betas, 300)
+    sd = np.concatenate(
+        [shapedirs[:, :, :n_shape], shapedirs[:, :, 300:300 + num_expr]],
+        axis=-1) if shapedirs.shape[-1] > 300 else shapedirs[:, :, :n_shape]
+    parents = (tuple(int(p) for p in np.asarray(data["kintree_table"])[0])
+               if "kintree_table" in data else SMPLX_PARENTS)
+    return _model(data, sd, parents, n_shape, num_expr, device)
+
+
+def _load_generic_npz(fn: str, num_betas: int, num_expr: int,
+                      expr_offset: int, device="cuda") -> SMPLXModel:
+    """The npz of any body-model family. ``expr_offset`` is the column of
+    shapedirs where the expression starts (300 for SMPL-X and FLAME, 0
+    for the families without one); the root's parent is -1 whatever the
+    file stores (the official files store uint32 -1)."""
+    data = np.load(fn, allow_pickle=True)
+    shapedirs = np.asarray(data["shapedirs"], np.float32)
+    n_cols = shapedirs.shape[-1]
+    if expr_offset and n_cols > expr_offset:
+        n_shape = min(num_betas, expr_offset)
+        sd = np.concatenate(
+            [shapedirs[:, :, :n_shape],
+             shapedirs[:, :, expr_offset:expr_offset + num_expr]], axis=-1)
+        ne = min(num_expr, n_cols - expr_offset)
+    else:
+        n_shape = min(num_betas, n_cols)
+        sd = shapedirs[:, :, :n_shape]
+        ne = 0
+    parents = tuple(
+        int(p) if i else -1
+        for i, p in enumerate(np.asarray(data["kintree_table"])[0])
+    ) if "kintree_table" in data else SMPLX_PARENTS
+    return _model(data, sd, parents, n_shape, ne, device)
+
+
+# family -> (file name, default num_betas, num_expr, expression column)
+_BODY_MODEL_FAMILIES = {
+    "smpl": ("SMPL_{G}.npz", 10, 0, 0),
+    "smplh": ("SMPLH_{G}.npz", 16, 0, 0),
+    "smplx": ("SMPLX_{G}.npz", 100, 50, 300),
+    "mano": ("MANO_{G}.npz", 10, 0, 0),       # gender slot: RIGHT / LEFT
+    "flame": ("FLAME_{G}.npz", 300, 100, 300),
+}
+
+
+def create(model_path: str, model_type: str = "smplx",
+           gender: str = "neutral", num_betas: Optional[int] = None,
+           num_expr: Optional[int] = None, device="cuda") -> SMPLXModel:
+    """The body model of family ``model_type`` (ref body_models.py:2380-2442
+    ``create``) from its npz release, looked up in
+    ``model_path``/<model_type>/ first, then in ``model_path``. Every
+    family runs the same skinning: ``forward`` cuts the pose to the
+    family's joint count. The .pkl releases are not read."""
+    mt = model_type.lower()
+    if mt not in _BODY_MODEL_FAMILIES:
+        raise ValueError(f"unknown model_type {model_type!r}; expected one "
+                         f"of {sorted(_BODY_MODEL_FAMILIES)}")
+    pat, d_betas, d_expr, off = _BODY_MODEL_FAMILIES[mt]
+    fname = pat.format(G=gender.upper())
+    for cand in (os.path.join(model_path, mt, fname),
+                 os.path.join(model_path, fname)):
+        if os.path.exists(cand):
+            return _load_generic_npz(
+                cand, num_betas if num_betas is not None else d_betas,
+                num_expr if num_expr is not None else d_expr, off, device)
+    raise FileNotFoundError(
+        f"no {fname} under {model_path!r} (tried '{mt}/' and flat)")
 
 
 def synthetic_body_model(n_theta: int = 24, n_phi: int = 12,

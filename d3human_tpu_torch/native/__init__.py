@@ -3,10 +3,19 @@ use into ``d3human_tpu_torch/build/`` (never next to the source).
 
   * meshsdf: BVH + pseudonormal signed-distance queries, the host engine
     of the template surgery (``native/meshsdf.py``).
+  * png: the scanline unfilter of the PNG reader (``utils/io.py``).
+  * framecache: the mmap'd frame cache with a prefetch thread
+    (``data/frame_cache.py``).
+
+A library that cannot be built or loaded raises ``BuildError``. The PNG
+reader and the frame cache pass it on (the cache reads a memmap only
+when asked, ``native=False``); the mesh SDF's host entry point answers
+with the tensor op instead (``ops/mesh_sdf.py:mesh_sdf_host``).
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
 import subprocess
 import threading
@@ -49,3 +58,12 @@ def build_lib(name: str, force: bool = False) -> Path:
             raise BuildError(f"g++ failed on {src.name}:\n{proc.stderr}")
         os.replace(tmp, lib)
     return lib
+
+
+def load_lib(name: str) -> ctypes.CDLL:
+    """``build_lib(name)`` loaded with ctypes."""
+    path = build_lib(name)
+    try:
+        return ctypes.CDLL(str(path))
+    except OSError as e:
+        raise BuildError(f"cannot load {path}: {e}") from e

@@ -18,7 +18,7 @@ from typing import Tuple
 
 import numpy as np
 
-from d3human_tpu_torch.native import BuildError, build_lib
+from d3human_tpu_torch.native import load_lib
 
 _lib = None
 _SIGN_MODE = {"neg_inside": 0, "pos_inside": 1, "unsigned": 2}
@@ -29,11 +29,7 @@ _I32 = ctypes.POINTER(ctypes.c_int32)
 def _load():
     global _lib
     if _lib is None:
-        path = build_lib("meshsdf")
-        try:
-            lib = ctypes.CDLL(str(path))
-        except OSError as e:
-            raise BuildError(f"cannot load {path}: {e}") from e
+        lib = load_lib("meshsdf")
         lib.msdf_build.restype = ctypes.c_void_p
         lib.msdf_build.argtypes = [_F32, ctypes.c_int32, _I32,
                                    ctypes.c_int32]

@@ -1,21 +1,29 @@
 """CLI: the 4-stage D3-Human reconstruction on the port (counterpart of
 ``train_d3h.py:49-501``).
 
+    python -m d3human_tpu_torch.train_d3h --config configs/f3c.json \\
+        --trainset_path ./data --folder_name neutral-f3c --out-dir out/f3c
     python -m d3human_tpu_torch.train_d3h --config configs/smoke.json \\
         --synthetic --stages init --iters-scale 0.01 --device cpu
 
 Stage graph (ref train.py:1528-1926): split_smpl -> close hole -> init ->
-split -> close hole + merge -> seq, on the built-in synthetic scene
-(``--synthetic``), on ``--device`` (default ``cuda``; with no card the run
+split -> close hole + merge -> seq, on the capture at
+``<trainset_path>/<folder_name>`` (the reference's layout,
+``data/dataset.py``) with the body model
+``<trainset_path>/smplx/SMPLX_<GENDER>.npz`` (the gender is the folder
+name's first ``-`` field), or on the built-in synthetic scene
+(``--synthetic``); on ``--device`` (default ``cuda``; with no card the run
 fails, it never drops to the CPU). ``--resume`` continues every stage from
 its newest state and reuses the host steps' finished outputs.
 
-Refused: a run without ``--synthetic`` (the capture loaders are ROADMAP.md
-Queue 1 item 16e) and ``--seq-parallel`` (item 18). The JAX driver's
-``precompile_async`` has no counterpart: PyTorch compiles nothing ahead of
-a step. The pretraining caches and the lattice cache live under the out
-dir (``cache/``, ``tet_grid_*.npz``), so a fresh out dir starts from
-nothing.
+A capture's frames are composited over a random background, as the JAX
+driver does; the background of an iteration is drawn from a generator
+seeded by (seed, stage, iteration), so a resumed run replays it (the JAX
+driver draws from one running stream). Refused: ``--seq-parallel``
+(ROADMAP.md Queue 1 item 18). The JAX driver's ``precompile_async`` has no
+counterpart: PyTorch compiles nothing ahead of a step. The pretraining
+caches and the lattice cache live under the out dir (``cache/``,
+``tet_grid_*.npz``), so a fresh out dir starts from nothing.
 """
 
 from __future__ import annotations
@@ -32,10 +40,14 @@ import numpy as np
 import torch
 
 from d3human_tpu_torch.config import load_config
-from d3human_tpu_torch.data.dataset import shuffled_indexer
+from d3human_tpu_torch.data.dataset import (
+    FrameDataset, composite_background, shuffled_indexer,
+)
 from d3human_tpu_torch.data.synthetic import CachedTargets, make_scene
 from d3human_tpu_torch.models.geometry import GeometryModel
 from d3human_tpu_torch.models.perceptual import make_perceptual
+from d3human_tpu_torch.models.smplx.deformer import SMPLXDeformer
+from d3human_tpu_torch.models.smplx.model import load_smplx_npz
 from d3human_tpu_torch.models.texture import MLPTexture3D
 from d3human_tpu_torch.ops.tet_grid import make_tet_grid
 from d3human_tpu_torch.pipeline.components import process_close_hole
@@ -48,7 +60,8 @@ from d3human_tpu_torch.train.checkpoint import (
     pretrain_cache_paths, save_params,
 )
 from d3human_tpu_torch.train.stages import (
-    export_stage_meshes, fold_in, run_seq_stage, run_stage,
+    export_stage_meshes, fold_in, iteration_generator, run_seq_stage,
+    run_stage,
 )
 from d3human_tpu_torch.train.step import init_state, make_train_step
 from d3human_tpu_torch.utils import io as mesh_io
@@ -63,9 +76,13 @@ def parse_args(argv: Optional[List[str]] = None):
     p = argparse.ArgumentParser("d3human_tpu_torch")
     p.add_argument("--config", type=str, default=None)
     p.add_argument("--out-dir", dest="out_dir", type=str, default="out/run")
+    p.add_argument("--trainset_path", type=str, default="./data",
+                   help="root of the captures and of smplx/SMPLX_*.npz")
+    p.add_argument("--folder_name", type=str, default="",
+                   help="the capture under --trainset_path; its first "
+                        "'-' field is the body model's gender")
     p.add_argument("--synthetic", action="store_true",
-                   help="run on the built-in synthetic scene (required: "
-                        "the capture loaders are not ported)")
+                   help="run on the built-in synthetic scene")
     p.add_argument("--synthetic-frames", type=int, default=64,
                    help="synthetic capture length (turntable frame count)")
     p.add_argument("--stages", type=str, default="split_smpl,init,split,seq",
@@ -97,12 +114,30 @@ def _synth_gt_mesh(scene, frame: int):
     return v[0], np.asarray(scene.model.faces)
 
 
+# the tag of the background draws among the run's generators
+BACKGROUND_TAG = 5
+
+
+def load_capture(args, train_res, dev):
+    """(dataset, body model) of the capture ``--trainset_path`` /
+    ``--folder_name``: the JAX driver's capture branch
+    (``train_d3h.py:163-186``). A missing file of the layout ends the run
+    with a message naming it."""
+    root = os.path.join(args.trainset_path, args.folder_name)
+    gender = args.folder_name.split("/")[-1].split("-")[0] or "neutral"
+    try:
+        dataset = FrameDataset(root, train_res, device=dev)
+        model_sx = load_smplx_npz(os.path.join(args.trainset_path, "smplx"),
+                                  gender=gender, device=dev)
+    except FileNotFoundError as e:
+        raise SystemExit(f"d3human_tpu_torch.train_d3h: no capture at "
+                         f"{root!r}: {e} (pass --synthetic for the built-in "
+                         "scene)") from e
+    return dataset, model_sx
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
-    if not args.synthetic:
-        raise SystemExit(
-            "d3human_tpu_torch.train_d3h: only --synthetic runs are "
-            "supported; the capture loaders are ROADMAP.md Queue 1 item 16e")
     if args.seq_parallel:
         raise SystemExit(
             "d3human_tpu_torch.train_d3h: --seq-parallel is not ported "
@@ -118,14 +153,56 @@ def main(argv: Optional[List[str]] = None) -> int:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     cfg = load_config(args.config, overrides={"out_dir": args.out_dir})
+
+    # ---- data and body model
+    scene = None
+    if args.synthetic:
+        scene = make_scene(resolution=tuple(cfg.render.train_res),
+                           n_frames=args.synthetic_frames, device=dev)
+        deformer, canon = scene.deformer, scene.canon
+        # training updates the pose in place: the scene keeps its own
+        pose0 = {k: v.clone() for k, v in scene.pose_params.items()}
+        n_images = scene.n_frames
+        src = scene
+        if cfg.stages.synthetic_target_cache:
+            src = CachedTargets(scene)
+            print(f"[data] on-device fp16 target cache: {scene.n_frames} "
+                  f"frames at {cfg.render.train_res}", flush=True)
+
+        def get_frame(frame, stage, it):
+            return src.frame_target(frame)
+    else:
+        dataset, model_sx = load_capture(args, cfg.render.train_res, dev)
+        deformer = SMPLXDeformer(model_sx)
+        shape = torch.as_tensor(dataset.smplx_params["shape"], device=dev)
+        canon = deformer.initialize(shape[:, :model_sx.num_betas])
+        # the per-frame poses, the shape and the three offsets
+        pose0 = {k: torch.as_tensor(v, device=dev)
+                 for k, v in dataset.smplx_params.items()}
+        n_images = dataset.n_images
+        bg_seed = fold_in(cfg.seed, BACKGROUND_TAG)
+
+        def get_frame(frame, stage, it):
+            """Frame ``frame`` over a random background drawn from
+            (seed, stage, iteration)."""
+            return composite_background(
+                dataset.frame_target(frame), "random",
+                iteration_generator(fold_in(bg_seed, stage), it, dev))
+    order = shuffled_indexer(n_images, seed=cfg.seed)
+
+    def targets(stage):
+        """it -> the target of iteration ``it`` of stage number ``stage``
+        (0 split_smpl, 1 init, 2 split): frames in the shuffled order."""
+        return lambda it: get_frame(order(it), stage, it)
+
     os.makedirs(cfg.out_dir, exist_ok=True)
     stages = args.stages.split(",")
 
     def s(n):
         return max(2, int(n * args.iters_scale))
 
-    # ---- parity bookkeeping: per-stage Chamfer to the synthetic capture's
-    # posed body and the validation metrics, in PARITY.json
+    # ---- parity bookkeeping: the validation metrics and, on the synthetic
+    # scene, per-stage Chamfer to its posed body, in PARITY.json
     parity: dict = {"config": args.config, "iters_scale": args.iters_scale,
                     "stages": {}}
     ppath = os.path.join(cfg.out_dir, "PARITY.json")
@@ -146,7 +223,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         if os.path.exists(fm):
             with open(fm) as fh:
                 entry.update(json.load(fh))
-        if mesh_paths:
+        if scene is not None and mesh_paths:
             gt_v, gt_f = _synth_gt_mesh(scene, frame)
             for name, path in mesh_paths.items():
                 v, f = mesh_io.load_obj(path)
@@ -157,22 +234,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         parity["stages"][stage_name] = entry
         write_parity()
         print(f"[parity] {stage_name}: {entry}", flush=True)
-
-    # ---- data and body model
-    scene = make_scene(resolution=tuple(cfg.render.train_res),
-                       n_frames=args.synthetic_frames, device=dev)
-    deformer, canon = scene.deformer, scene.canon
-    n_images = scene.n_frames
-    order = shuffled_indexer(n_images, seed=cfg.seed)
-    src = scene
-    if cfg.stages.synthetic_target_cache:
-        src = CachedTargets(scene)
-        print(f"[data] on-device fp16 target cache: {scene.n_frames} "
-              f"frames at {cfg.render.train_res}", flush=True)
-    get_frame = src.frame_target                 # frame semantics (seq)
-
-    def get_target(it):
-        return get_frame(order(it))
 
     # ---- model
     g = cfg.geometry
@@ -222,8 +283,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                                               dev)
     params = {
         "geometry": gparams,
-        # training updates the pose in place: the scene keeps its own
-        "pose": {k: v.clone() for k, v in scene.pose_params.items()},
+        "pose": pose0,
         "material": tex.init(generator(1)),
         "light": create_trainable_env(generator(2), r.probe_res,
                                       device=dev),
@@ -255,7 +315,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         sdir = os.path.join(cfg.out_dir, "split_smpl")
         n = s(cfg.stages.split_smpl_epoch)
         state, start_it = maybe_resume(state, sdir, n)
-        state = run_stage("split_smpl", n, state, step_fn, get_target, cfg,
+        state = run_stage("split_smpl", n, state, step_fn, targets(0), cfg,
                           sdir, fold_in(run_seed, 0), model,
                           start_it=start_it, tex_module=tex)
         params, state = state.params, None
@@ -275,7 +335,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         sdir = os.path.join(cfg.out_dir, "init")
         n = s(cfg.stages.init_epoch)
         state, start_it = maybe_resume(state, sdir, n)
-        state = run_stage("init", n, state, step_fn, get_target, cfg, sdir,
+        state = run_stage("init", n, state, step_fn, targets(1), cfg, sdir,
                           fold_in(run_seed, 1), model, start_it=start_it,
                           tex_module=tex)
         params, state = state.params, None
@@ -288,7 +348,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         sdir = os.path.join(cfg.out_dir, "split_cloth0")
         n = s(cfg.stages.split_epoch)
         state, start_it = maybe_resume(state, sdir, n)
-        state = run_stage("split", n, state, step_fn, get_target, cfg, sdir,
+        state = run_stage("split", n, state, step_fn, targets(2), cfg, sdir,
                           fold_in(run_seed, 2), model, start_it=start_it,
                           tex_module=tex)
         params, state = state.params, None
@@ -319,22 +379,23 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     if "seq" in stages:
         template = build_seq_template(process_dir, device=dev)
-        # the merge's error floor: the unoptimised template posed to frame
-        # 0 against the ground-truth surface
-        t0 = get_frame(0)
-        with torch.no_grad():
-            posed0 = model.pose_verts(template.v, params["pose"],
-                                      int(t0["frame_idx"]))
-        gt_v0, gt_f0 = _synth_gt_mesh(scene, 0)
-        ch_t = mesh_chamfer(posed0, template.f, gt_v0, gt_f0, PARITY_SAMPLES,
-                            device=dev)
-        parity["stages"]["seq_template_frame0"] = {
-            "chamfer_unoptimized_template": round(ch_t, 6),
-            "n_faces": int(template.f.shape[0]),
-            "n_verts": int(template.v.shape[0])}
-        write_parity()
-        print(f"[parity] seq template frame0 chamfer={ch_t:.6f} "
-              f"({template.f.shape[0]} faces)", flush=True)
+        if scene is not None:
+            # the merge's error floor: the unoptimised template posed to
+            # frame 0 against the ground-truth surface
+            t0 = get_frame(0, 3, 0)
+            with torch.no_grad():
+                posed0 = model.pose_verts(template.v, params["pose"],
+                                          int(t0["frame_idx"]))
+            gt_v0, gt_f0 = _synth_gt_mesh(scene, 0)
+            ch_t = mesh_chamfer(posed0, template.f, gt_v0, gt_f0,
+                                PARITY_SAMPLES, device=dev)
+            parity["stages"]["seq_template_frame0"] = {
+                "chamfer_unoptimized_template": round(ch_t, 6),
+                "n_faces": int(template.f.shape[0]),
+                "n_verts": int(template.v.shape[0])}
+            write_parity()
+            print(f"[parity] seq template frame0 chamfer={ch_t:.6f} "
+                  f"({template.f.shape[0]} faces)", flush=True)
         if cfg.stages.seq_static_skin_weights:
             with torch.no_grad():
                 template = dataclasses.replace(
@@ -348,7 +409,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                                   perc_params, cfg, template=template)
         seq_dir = os.path.join(cfg.out_dir, "seq")
         state = run_seq_stage(init_state("seq", params, cfg), step_fn,
-                              template, get_frame, n_frames=n_images,
+                              template, lambda f: get_frame(f, 3, f),
+                              n_frames=n_images,
                               cfg=cfg_seq, save_path=seq_dir,
                               seed=fold_in(run_seed, 3), model=model,
                               tex_module=tex)
@@ -356,14 +418,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         # per-frame Chamfer of the fitted seq meshes to the posed ground
         # truth (fine_all_*.ply)
         chs = []
-        for fn in sorted(os.listdir(seq_dir)):
+        for fn in sorted(os.listdir(seq_dir)) if scene is not None else ():
             m = re.match(r"fine_all_(\d+)\.ply", fn)
             if not m:
                 continue
             v, f = mesh_io.read_ply(os.path.join(seq_dir, fn))
             gt_v, gt_f = _synth_gt_mesh(scene, int(m.group(1)))
             chs.append(mesh_chamfer(v, f, gt_v, gt_f, PARITY_SAMPLES,
-                                   device=dev))
+                                    device=dev))
         if chs:
             record_parity("seq", seq_dir, None)
             parity["stages"]["seq"].update({

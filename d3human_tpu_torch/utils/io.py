@@ -1,8 +1,9 @@
 """Files of the stage artifacts (counterpart of
 ``d3human_tpu/utils/io.py``): OBJ and binary PLY reading and writing, in
-the JAX package's text and byte layout, 8-bit PNG images, and the
-host-side compaction and welding of the extraction's fixed-capacity
-meshes. Arrays may be numpy arrays or tensors on any device."""
+the JAX package's text and byte layout, 8-bit PNG images written and
+read, and the host-side compaction and welding of the extraction's
+fixed-capacity meshes. Arrays may be numpy arrays or tensors on any
+device."""
 
 from __future__ import annotations
 
@@ -144,6 +145,93 @@ def save_image(path: str, img) -> None:
                                            0, 0, 0)))
         f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
         f.write(chunk(b"IEND", b""))
+
+
+# colour type -> samples per pixel, for 8-bit non-interlaced images
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_png_lib = None
+
+
+def _unfilter(path: str, raw: bytes, H: int, stride: int,
+              bpp: int) -> np.ndarray:
+    """The image bytes [H, stride] of the inflated scanlines ``raw``,
+    unfiltered by the native library (``native/png.cpp``)."""
+    import ctypes
+
+    global _png_lib
+    if _png_lib is None:
+        from d3human_tpu_torch.native import load_lib
+
+        lib = load_lib("png")
+        lib.png_unfilter.restype = ctypes.c_int64
+        lib.png_unfilter.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.c_int64, ctypes.c_int64,
+                                     ctypes.c_int32]
+        _png_lib = lib
+    if len(raw) != H * (stride + 1):
+        raise ValueError(f"{path}: {len(raw)} bytes of image data, "
+                         f"expected {H * (stride + 1)}")
+    src = np.frombuffer(raw, np.uint8)
+    out = np.empty((H, stride), np.uint8)
+    bad = _png_lib.png_unfilter(src.ctypes.data, out.ctypes.data, H, stride,
+                                bpp)
+    if bad:
+        raise ValueError(f"{path}: row {bad - 1} has an unknown filter "
+                         "type")
+    return out
+
+
+def load_image(path: str) -> np.ndarray:
+    """An 8-bit PNG as a uint8 array, as imageio reads it: [H, W] for
+    grey, [H, W, 2] grey with alpha, [H, W, 3] RGB, [H, W, 4] RGBA; a
+    palette image expands to RGB, or to RGBA when it has a ``tRNS``
+    chunk. Non-interlaced, any of the five scanline filters. Other bit
+    depths and Adam7 interlace raise ``ValueError``, as does a chunk whose
+    CRC does not match. The unfilter is native code and is never done in
+    Python: a library that cannot be built raises ``native.BuildError``."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG file")
+    pos, idat, hdr, plte, trns = 8, [], None, None, None
+    while pos + 12 <= len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        crc = data[pos + 8 + n:pos + 12 + n]
+        if len(body) != n or len(crc) != 4 or struct.unpack(">I", crc)[0] \
+                != zlib.crc32(tag + body) & 0xFFFFFFFF:
+            raise ValueError(f"{path}: chunk {tag!r} is truncated or its "
+                             "CRC does not match")
+        pos += 12 + n
+        if tag == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"PLTE":
+            plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif tag == b"tRNS":
+            trns = np.frombuffer(body, np.uint8)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+    if hdr is None or not idat:
+        raise ValueError(f"{path}: no IHDR or no IDAT chunk")
+    W, H, depth, color, _, _, interlace = hdr
+    if depth != 8 or color not in _PNG_CHANNELS:
+        raise ValueError(f"{path}: bit depth {depth}, colour type {color}: "
+                         "only 8-bit images are read")
+    if interlace:
+        raise ValueError(f"{path}: Adam7 interlace is not read")
+    ch = _PNG_CHANNELS[color]
+    px = _unfilter(path, zlib.decompress(b"".join(idat)), H, W * ch, ch)
+    if color == 3:
+        if plte is None:
+            raise ValueError(f"{path}: palette image without PLTE")
+        if trns is not None:
+            alpha = np.full((len(plte),), 255, np.uint8)
+            alpha[:len(trns)] = trns[:len(plte)]
+            plte = np.concatenate([plte, alpha[:, None]], 1)
+        return plte[px]
+    return px.reshape(H, W) if ch == 1 else px.reshape(H, W, ch)
 
 
 def compact_mesh(verts, faces, face_valid) -> Tuple[np.ndarray, np.ndarray]:

@@ -2,8 +2,11 @@
 all four stages on ``chip_smoke.py``'s CPU-sized ``cli`` scale (a copy of
 ``configs/smoke.json`` with the pretrainings cut, the lattice cropped and
 48² pixels) through the script's own phase, which also reruns it with
-``--resume``; the JAX driver's file tree; a resumed run bit for bit the
-uninterrupted one; the flags it refuses."""
+``--resume``; the same on a capture that the port's exporter wrote in the
+reference's layout (the phases ``capture_export``, ``capture_data`` and
+``capture_cli``); the JAX driver's file tree; a resumed run bit for bit
+the uninterrupted one, on the synthetic scene and on the capture; what it
+refuses."""
 
 import json
 import os
@@ -86,6 +89,62 @@ def test_chip_smoke_cli_recorded_inputs(cli_run):
             rr.resolve_tiles_indexed(rows, all_faces, (8, 128), ntx, floor,
                                      counts, global_range),
             rr.resolve_tiles_plain(copied, (8, 128), ntx, floor)), site
+
+
+@pytest.fixture(scope="module")
+def capture_run(tmp_path_factory):
+    """chip_smoke.py's capture phases at their CPU-sized scale: the port's
+    exporter at 48², 2 frames, the data checks on its layout, then the CLI
+    on it without --synthetic (with the phases' own checks)."""
+    import chip_smoke
+
+    root = str(tmp_path_factory.mktemp("capture"))
+    export = chip_smoke.phase_capture_export("tiny", "cpu", root)
+    data = chip_smoke.phase_capture_data("tiny", "cpu", root)
+    run = chip_smoke.phase_cli("tiny", "cpu", os.path.join(root, "cli"),
+                               capture=root)
+    return dict(run, export=export, data=data, layout=root)
+
+
+def test_chip_smoke_capture_rehearsal(capture_run):
+    """The exporter's 10 PNGs; the dataset within the round-trip bounds,
+    frame 0 at twice the resolution giving frame 0's targets, the PNG
+    reader exact on every filter, the cache, the SMPL-X-layout
+    body model (checked inside the phase); the CLI's four stages at their
+    scaled budgets on the capture, with its data timed, no Chamfer in
+    PARITY.json and both split halves non-empty."""
+    ex, data = capture_run["export"], capture_run["data"]
+    assert ex["frames"] == 2 and ex["png_bytes"] > 0
+    src2 = data["source_2x"]
+    assert src2["resolution"] == [96, 96] and src2["png_bytes"] > 0
+    assert src2["targets_equal_frame0"] and src2["resize_equal_cpu"]
+    assert set(data["png_filters"]["by_filter"]) == {
+        "0", "1", "2", "3", "4", "per row"}
+    assert data["body_model"]["joints"] == 55
+    assert data["body_model"]["shapedirs"][-1] == 150
+    assert data["body_model"]["posedirs"][0] == 486
+    st = capture_run["stages"]
+    assert {k: st[k]["iterations"] for k in
+            ("split_smpl", "init", "split", "seq")} == {
+        "split_smpl": 2, "init": 4, "split": 2, "seq": 4}
+    assert capture_run["steps"] == 12 and "resume" not in capture_run
+    for name in ("split_smpl", "init", "split", "seq"):
+        assert st[name]["data_reads"] >= (
+            2 if name == "seq" else st[name]["iterations"])
+        assert 0 < st[name]["decodes"] <= st[name]["data_reads"]
+    assert min(capture_run["split_faces"].values()) > 0
+    parity = capture_run["parity"]
+    assert set(parity) == {"split_smpl", "init", "split"}
+    assert not any(k.startswith("chamfer") for v in parity.values()
+                   for k in v)
+    assert "--synthetic" not in capture_run["argv"]
+
+
+def test_capture_cli_writes_the_jax_drivers_file_tree(capture_run):
+    out = capture_run["out_dir"]
+    missing = [p for p in FILE_TREE if not os.path.exists(os.path.join(
+        out, p))]
+    assert not missing
 
 
 def test_chip_smoke_gt_targets_rehearsal():
@@ -219,12 +278,47 @@ def test_resumed_run_equals_uninterrupted_bit_for_bit(cli_run, tmp_path,
         np.testing.assert_array_equal(b[k], a[k], err_msg=k)
 
 
+def test_capture_resumed_run_equals_uninterrupted_bit_for_bit(
+        capture_run, tmp_path, monkeypatch):
+    """As above on the capture: the backgrounds are drawn from (seed,
+    stage, iteration), so the resumed run replays them."""
+    src = capture_run["out_dir"]
+    cfg = json.load(open(os.path.join(os.path.dirname(src), "config.json")))
+    cfg["stages"]["save_checkpoint_interval"] = 2
+    cfg_path = str(tmp_path / "config.json")
+    json.dump(cfg, open(cfg_path, "w"))
+    finals = []
+    for name, cut in (("straight", None), ("cut", 3)):
+        out = tmp_path / name
+        shutil.copytree(os.path.join(src, "cache"), out / "cache")
+        argv = ["--config", cfg_path, "--out-dir", str(out),
+                "--trainset_path", capture_run["layout"], "--folder_name",
+                "neutral-synth", "--stages", "init", "--iters-scale",
+                "0.002", "--device", "cpu"]
+        if cut is not None:
+            _run(argv, monkeypatch, stop_at=cut)
+            assert sorted(os.listdir(out / "init" / "ckp")) == [
+                "state_2.npz"]
+            argv = argv + ["--resume"]
+        _run(argv)
+        with np.load(out / "init" / "ckp" / "state_3.npz") as z:
+            finals.append({k: z[k] for k in z.files})
+    a, b = finals
+    assert a.keys() == b.keys()
+    assert any("['pose']['face_offset']" in k for k in a)
+    for k in a:
+        np.testing.assert_array_equal(b[k], a[k], err_msg=k)
+
+
 def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """A missing capture layout (the file named), --seq-parallel, a card
+    that is not there; none of them writes the out dir."""
     import d3human_tpu_torch.train_d3h as cli
 
     out = ["--out-dir", str(tmp_path / "o")]
-    with pytest.raises(SystemExit, match="16e"):
-        cli.main(out + ["--device", "cpu"])
+    with pytest.raises(SystemExit, match="nowhere/f3c/key.list"):
+        cli.main(out + ["--trainset_path", str(tmp_path / "nowhere"),
+                        "--folder_name", "f3c", "--device", "cpu"])
     with pytest.raises(SystemExit, match="item 18"):
         cli.main(out + ["--synthetic", "--seq-parallel", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
