@@ -15,6 +15,10 @@ object per line (``t``: the script's seconds when the phase ended):
                texture), same parameters and injected random draws
   small_seq    the same for the seq tick on a tiny template (the body
                subdivided once)
+  small_pbr    render_mesh(bsdf="pbr") on the tiny scene's init mesh, card
+               against CPU with the same draws: buffers abs 1e-5, the
+               light's and the texture's gradients rel-L2 1e-4; without
+               and with an analytic ball as the occluder
   scene        the full-width bench scene: 1080^2 pixels, 128^3 lattice
                cropped to the template box + 0.1, 2^18 / 196,608
                capacities, capsule-seeded SDF, mSDF cut at mid height,
@@ -100,6 +104,33 @@ object per line (``t``: the script's seconds when the phase ended):
   profile      one more seq step under torch.profiler
   seq_knn      the seq step's two nearest-neighbour searches alone (the
                collision's and the skinning-weight transfer's), timed
+  pbr          render_mesh(bsdf="pbr") on the scene's init mesh at 1080^2,
+               the scene's 256^2 probe (scaled by a seeded field), 8 light
+               samples: a warm-up whose kernel calls are recorded by call
+               site, PBR_RENDERS forward + backward renders (extraction
+               included; ms, peak memory; the light's and the texture's
+               gradients finite and non-zero), a forward render without
+               gradients, and one with the scene's SDF MLP as the occluder
+               (positive at the body's centre; 149 M queries; seconds and
+               peak memory): the shadow darkens pixels and lightens none
+  pbr_kernels  first_k, the scatter and the resolve at the pbr warm-up's
+               recorded calls, as in cli_kernels; the rows' "pbr" entries
+  mobilenet    MOBILENET_STEPS init and split steps at full width with the
+               MobileNetV2 backbone on its He-init weights (the checks of
+               step and split_step, phases mobilenet_step and
+               mobilenet_split_step), its features card vs CPU at the
+               448^2 crop (rel-L2 1e-5 a tap), then per stage
+               MOBILENET_STEPS turns of a conv-backbone step and a
+               MobileNet step (CUDA events)
+  aux          each API-only module once on the card against the CPU:
+               edge_normal_consistency_loss on the scene's init extraction,
+               antialias and the bilateral denoiser at 1080^2, the cubemap
+               conversions and prefilters at 32^2 a face, CondBNDecoder,
+               LPIPSLike on the 448^2 crop (values abs 1e-5 + rel 1e-5,
+               gradients rel-L2 1e-3); on the host tetrahedralize_interior
+               of the SMPL template and a material file's round trip
+  aux_kernels  the kernels at the aux calls' recorded inputs; the rows'
+               "aux" entries
   gt_targets   the synthetic ground truth at 1080^2 (the scenes above are
                freed first): frame_target of 4 frames through the oracle
                rasterizer (plain PyTorch by design: no kernel), ms per
@@ -130,6 +161,13 @@ object per line (``t``: the script's seconds when the phase ended):
                binning (the seq stage's on the seq template), each held
                to its plain version as in surgery_kernels; reported under
                "cli" in each row
+  bake         the port's bake entry point (d3human_tpu_torch.scripts.
+               bake_texture) on the cli run's init checkpoint and
+               watertight mesh at 2048^2, --atlas lscm and --atlas grid:
+               faces, charts, the unwrap's seconds (host), the bake's,
+               the UV rasterization and the texture lookups timed alone,
+               the files; render_uv at 256^2 on the card equal to the
+               CPU's (masks exact, kd / ks abs 1e-5)
   capture_export  the port's exporter (d3human_tpu_torch.scripts.
                export_reference_layout) writes the synthetic scene in the
                reference's capture layout at 1080^2, 4 frames, under
@@ -192,6 +230,8 @@ SURGERY_SEQ_STEPS = 2          # timed seq steps on the surgery's template
 FIELD_STEPS = 30               # Adam steps of each field pretraining
 SEED_STEPS = 400               # Adam steps fitting the SDF to the capsule
 VAL_LAYERS = 2                 # depth-peeled layers of the validation render
+MOBILENET_STEPS = 3            # timed steps a stage with the MobileNetV2 loss
+AUX_DIR = "d3human_tpu_torch/build/smoke_aux"
 EXACT = ("n_cross", "n_valid_tets", "n_big_faces", "n_max_tile")
 # the training state of each stage in the scene dict, and its step's phase
 STATE_KEY = {"init": "state", "split": "split_state", "seq": "seq_state"}
@@ -514,12 +554,13 @@ def compare_small_tick(cpu: dict, gpu: dict, stage: str) -> None:
 
 
 def phase_small(seed_steps: int) -> None:
-    """The whole init, split and seq ticks, kernels on the card vs plain
-    versions on the CPU, on one tiny scene with identical parameters and
-    random draws."""
+    """The whole init, split and seq ticks and the pbr render, kernels on
+    the card vs plain versions on the CPU, on one tiny scene with
+    identical parameters and random draws."""
     cpu, gpu = small_scenes(seed_steps)
     for stage in SMALL_PHASE:
         compare_small_tick(cpu, gpu, stage)
+    phase_small_pbr(cpu, gpu)
 
 
 def check_first_k(what: str, mask, k: int) -> dict:
@@ -1027,7 +1068,7 @@ def phase_step(sc: dict, stage: str, steps: int, phase: str = None) -> dict:
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                losses=last)
     emit(phase, **out)
-    return dict(launches=launches, calls=calls)
+    return dict(out, launches=launches, calls=calls)
 
 
 def validation_render(sc: dict, sign: float, generator=None):
@@ -1198,6 +1239,521 @@ def phase_seq_knn(sc: dict) -> None:
                          ms=cuda_ms(lambda q=q, r=r: knn1(q, r), reps=3,
                                     warm=1), bound_ms=b, bound_by=by)
     emit("seq_knn", **out)
+
+
+# ------------------------------------------------- the rest of the render
+
+PBR_SAMPLES = 8           # light samples a pixel (render_mesh's default)
+PBR_RENDERS = 2           # timed pbr forward + backward renders
+SDF_CHUNK = 131072        # points a call of the SDF MLP as the occluder
+                          # (the JAX package's default geometry.sdf_chunk)
+PBR_BUFFERS = ("shaded", "diffuse_light", "specular_light", "kd", "ks",
+               "normal", "geometric_normal", "depth", "alpha")
+
+
+def rel_l2(a, b) -> float:
+    import torch
+
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    return float(torch.linalg.norm(a - b)
+                 / torch.linalg.norm(b).clamp_min(1e-30))
+
+
+def pbr_inputs(sc: dict, seed: int):
+    """(light, material) copies of the scene's that take gradients; the
+    probe is scaled by a seeded field in [0.5, 1.5] (the scene's probe is
+    constant, which would make every texel equally likely)."""
+    import torch
+
+    base = sc["params"]["light"]["base"]
+    scale = torch.rand(tuple(base.shape),
+                       generator=torch.Generator().manual_seed(seed)) + 0.5
+    light = {"base": (base.detach() * scale.to(base.device))
+             .requires_grad_(True)}
+    mat = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                   sc["params"]["material"])
+    return light, mat
+
+
+def init_mesh(sc: dict):
+    """(posed verts, template verts, faces, face_valid) of the scene's init
+    extraction, without gradients."""
+    import torch
+
+    p = sc["params"]
+    with torch.no_grad():
+        m = sc["model"].get_meshes(p["geometry"], p["pose"], 0)
+    return m.verts_posed, m.verts_template, m.mesh.faces, m.mesh.face_valid
+
+
+def pbr_render(sc: dict, light, mat, generator=None, draws=None,
+               sdf_fn=None, mesh=None):
+    """``mesh`` (default: the scene's init mesh, extracted now) through
+    ``render_mesh(bsdf="pbr")`` at the training resolution."""
+    from d3human_tpu_torch.render.pipeline import render_mesh
+
+    cfg, t = sc["cfg"], sc["target"]
+    return render_mesh(
+        generator, *(mesh or init_mesh(sc)), t["mvp"], t["campos"],
+        tuple(cfg.render.train_res), sc["tex"], mat, t["background"],
+        raster_opts=sc["raster_opts"],
+        max_covered_frac=cfg.render.max_covered_frac, bsdf="pbr",
+        light_params=light, n_light_samples=PBR_SAMPLES, sdf_fn=sdf_fn,
+        draws=draws)
+
+
+def pbr_loss(buf, wts):
+    import torch
+
+    return (torch.cat([buf.shaded, buf.diffuse_light, buf.specular_light],
+                      -1) * wts).sum()
+
+
+def pbr_draws(sc: dict, seed: int, device):
+    """The render's texture and normal-tap normals and the light sampler's
+    uniforms, made on the CPU from ``seed`` and placed on ``device``."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    H, W = sc["cfg"].render.train_res
+    max_cov = int(H * W * sc["cfg"].render.max_covered_frac)
+    n_tex = torch.randn((-(-max_cov // 2), 3), generator=gen)
+    n_uv = torch.randn((H, W, 2), generator=gen)
+    light = [torch.rand((PBR_SAMPLES,), generator=gen) for _ in "yx"]
+    return (n_tex.to(device), n_uv.to(device),
+            tuple(u.to(device) for u in light))
+
+
+def sphere_sdf(center, radius: float):
+    """An analytic ball, positive inside."""
+    return lambda p: radius - (p - center).norm(dim=-1)
+
+
+def scene_sdf(sc: dict):
+    """The scene's SDF MLP on points [..., 3] (positive inside), SDF_CHUNK
+    points a call; the canonical field, queried at posed points."""
+    import torch
+
+    model, g = sc["model"], sc["params"]["geometry"]
+
+    def fn(p):
+        flat = p.reshape(-1, 3)
+        return torch.cat([model.sdf_mlp.apply(g["sdf_net"], c)[..., 0]
+                          for c in flat.split(SDF_CHUNK)]).reshape(
+            p.shape[:-1])
+    return fn
+
+
+def grads(light, mat):
+    """(the light's gradient, the material's gradients as one vector)."""
+    import torch
+
+    leaves = []
+    tree_map(leaves.append, mat)
+    return light["base"].grad, torch.cat([
+        (t.grad if t.grad is not None else torch.zeros_like(t)).reshape(-1)
+        for t in leaves])
+
+
+def phase_small_pbr(cpu: dict, gpu: dict) -> None:
+    """``render_mesh(bsdf="pbr")`` on the tiny scene's init mesh (extracted
+    once, on the CPU), kernels on the card against plain versions on the
+    CPU, with the same random draws: every buffer within abs 1e-5, the
+    light's and the texture's gradients within rel-L2 1e-4; without and
+    with an analytic ball as the occluder (the shadow must darken some
+    pixel)."""
+    import torch
+
+    H, W = cpu["cfg"].render.train_res
+    wts = torch.randn((H, W, 10), generator=torch.Generator().manual_seed(6))
+    mesh = init_mesh(cpu)
+    out, diffuse = {}, {}
+    for shadow in (False, True):
+        got = {}
+        for name, sc in (("cpu", cpu), ("cuda", gpu)):
+            dev = sc["params"]["light"]["base"].device
+            light, mat = pbr_inputs(sc, seed=7)
+            sdf = (sphere_sdf(torch.tensor([0.0, 0.3, 0.3], device=dev), 0.3)
+                   if shadow else None)
+            buf = pbr_render(sc, light, mat, draws=pbr_draws(sc, 8, dev),
+                             sdf_fn=sdf, mesh=[t.to(dev) for t in mesh])
+            pbr_loss(buf, wts.to(dev)).backward()
+            got[name] = (buf, *grads(light, mat))
+        (bc, lc, mc), (bg, lg, mg) = got["cpu"], got["cuda"]
+        err = {k: float((getattr(bg, k).detach().cpu()
+                         - getattr(bc, k).detach()).abs().max())
+               for k in PBR_BUFFERS}
+        g_err = dict(light=rel_l2(lg, lc), material=rel_l2(mg, mc))
+        check(max(err.values()) <= 1e-5, f"small_pbr: buffers {err}")
+        check(max(g_err.values()) <= 1e-4, f"small_pbr: gradients {g_err}")
+        check(float(lc.abs().max()) > 0 and float(mc.abs().max()) > 0,
+              "small_pbr: a zero gradient")
+        diffuse[shadow] = bc.diffuse_light.detach()
+        out["shadow" if shadow else "no_shadow"] = dict(
+            max_abs_err=err, grad_rel_l2=g_err,
+            covered=int((bc.rast.tri_id > 0).sum()))
+    check(bool((diffuse[True] < diffuse[False] - 1e-6).any())
+          and bool((diffuse[True] <= diffuse[False] + 1e-6).all()),
+          "small_pbr: the occluder darkens no pixel, or lightens one")
+    emit("small_pbr", ok=True, tolerance="buffers abs 1e-5, gradients "
+         "rel-L2 1e-4", samples=PBR_SAMPLES, **out)
+
+
+def phase_pbr(sc: dict, device: str) -> dict:
+    """``render_mesh(bsdf="pbr")`` on the scene's init mesh at the training
+    resolution with the scene's probe and material: a recorded warm-up,
+    PBR_RENDERS timed forward + backward renders without an occluder
+    (the extraction included; gradients of the light and the texture
+    finite and non-zero), then forward renders without gradients of the
+    canonical mesh (the scene's SDF is the canonical field), with and
+    without that SDF as the occluder (its sign checked inside the body
+    first), on the same draws: the shadow darkens pixels and lightens
+    none. Seconds and peak memory of each. Returns the kernels'
+    launches and calls from just before the timed renders to just after
+    the shadowed one, and the warm-up's kernel inputs by call site."""
+    import torch
+
+    from d3human_tpu_torch.ops.rasterizer import (
+        barycentrics, interpolate, xfm_points,
+    )
+
+    cuda = device == "cuda"
+    H, W = sc["cfg"].render.train_res
+    gen = torch.Generator(device=device).manual_seed(9)
+    wts = torch.randn((H, W, 10), generator=gen, device=device)
+    light, mat = pbr_inputs(sc, seed=10)
+
+    def fwd_bwd():
+        for t in [light["base"]] + [mat]:
+            tree_map(lambda x: setattr(x, "grad", None), t)
+        buf = pbr_render(sc, light, mat, generator=gen)
+        pbr_loss(buf, wts).backward()
+        return buf
+
+    with recording_kernel_inputs() as inputs:
+        buf, warm_s = timed(device, fwd_bwd)
+    g_light, g_mat = grads(light, mat)
+    for what, g in (("light", g_light), ("material", g_mat)):
+        check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0,
+              f"pbr: the {what}'s gradient is zero or not finite")
+    check(float(buf.specular_light.detach().abs().max()) > 0,
+          "pbr: no specular light")
+    reset_peak(device)
+    reset_counts()
+    fb_s = [timed(device, fwd_bwd)[1] for _ in range(PBR_RENDERS)]
+    fb_peak = peak_gib(device)
+    sdf = scene_sdf(sc)
+    # the field is the canonical one: the no-gradient renders show the
+    # canonical (template) mesh, the field's own zero set, so that it
+    # occludes what it describes
+    _, canon, faces, fvalid = init_mesh(sc)
+    mesh = (canon, canon, faces, fvalid)
+    with torch.no_grad():
+        inside = float(sdf(torch.zeros((1, 3), device=device))[0])
+        check(inside > 0, f"pbr: the scene's SDF is {inside} at the body's "
+              "centre (the occluder must be positive inside)")
+        draws = pbr_draws(sc, 11, device)
+        plain, fwd_s = timed(device, lambda: pbr_render(
+            sc, light, mat, draws=draws, mesh=mesh))
+        reset_peak(device)
+        shadowed, shadow_s = timed(device, lambda: pbr_render(
+            sc, light, mat, draws=draws, sdf_fn=sdf, mesh=mesh))
+        shadow_peak = peak_gib(device)
+    counts = read_counts()
+    calls = counts.pop("calls")
+    for k in ("first_k_indices", "coo_scatter_add", "resolve_tiles"):
+        check(not cuda or counts[k] > 0, f"pbr: {k} never launched")
+    d0, d1 = plain.diffuse_light, shadowed.diffuse_light
+    check(bool((d1 <= d0 + 1e-6).all()), "pbr: the occluder lightens")
+    darker = int((d1 < d0 - 1e-6).any(-1).sum())
+    check(darker > 0, "pbr: the occluder darkens no pixel")
+    cover = plain.alpha[..., 0] > 0
+    # where the shadow rays start: the shading normal's side of the surface
+    # (the extraction winds faces both ways, so its vertex normals can
+    # point into the body)
+    with torch.no_grad():
+        v_clip = xfm_points(canon, sc["target"]["mvp"])
+        bary, _ = barycentrics(v_clip, faces, plain.rast, (H, W))
+        pos = interpolate(canon, bary, faces, plain.rast)
+        start_inside = sdf(pos + plain.normal[..., :3] * 1e-3) > 0
+    emit("pbr", resolution=[H, W], samples=PBR_SAMPLES,
+         probe=list(light["base"].shape), covered=int(cover.sum()),
+         warmup_s=warm_s, fwd_bwd_ms=[s * 1e3 for s in fb_s],
+         fwd_bwd_peak_gib=fb_peak, fwd_ms=fwd_s * 1e3,
+         shadowed_fwd_s=shadow_s, shadowed_peak_gib=shadow_peak,
+         sdf_queries=H * W * PBR_SAMPLES * 16, sdf_at_centre=inside,
+         shadowed_pixels=darker,
+         ray_origins_inside=int(start_inside[cover].sum()),
+         diffuse_mean=float(d0[cover].mean()),
+         shadowed_diffuse_mean=float(d1[cover].mean()),
+         specular_mean=float(plain.specular_light[cover].mean()),
+         grad_norm=dict(light=float(g_light.norm()),
+                        material=float(g_mat.norm())),
+         launches=counts, calls=calls)
+    return dict(launches=counts, calls=calls, inputs=inputs)
+
+
+def mobilenet_scene(sc: dict, device: str) -> dict:
+    """The scene with the MobileNetV2 perceptual backbone on its He-init
+    weights (the repository holds no pretrained npz)."""
+    from d3human_tpu_torch.models.mobilenet import MobileNetFeatures
+
+    mob = MobileNetFeatures()
+    return dict(sc, perceptual=mob, perc_params=mob.init(None, device))
+
+
+def mobilenet_features_err(msc: dict, device: str) -> list:
+    """The taps' rel-L2 distance, on ``device`` against the CPU, of two
+    seeded images at the perceptual crop."""
+    import torch
+
+    crop = msc["cfg"].loss.perceptual_crop
+    x = torch.rand((2, crop, crop, 3),
+                   generator=torch.Generator().manual_seed(12)) * 2 - 1
+    mob, p = msc["perceptual"], msc["perc_params"]
+    want = mob.features({k: v.cpu() for k, v in p.items()}, x)
+    got = mob.features(p, x.to(device))
+    return [rel_l2(g, w) for g, w in zip(got, want)]
+
+
+def phase_mobilenet(sc: dict, steps: int) -> dict:
+    """``steps`` init and split training steps at full width with the
+    MobileNetV2 backbone (``mobilenet_step``, ``mobilenet_split_step``:
+    the checks of ``step``), its features on the card against the CPU at
+    the perceptual crop (rel-L2 1e-5 a tap), then per stage ``steps``
+    turns of one conv-backbone step and one MobileNet step, each timed on
+    CUDA events (the steps share the parameters and update them)."""
+    import torch
+
+    msc = mobilenet_scene(sc, "cuda")
+    errs = mobilenet_features_err(msc, "cuda")
+    check(max(errs) <= 1e-5, f"mobilenet: features card vs CPU {errs}")
+    out = {stage: phase_step(msc, stage, steps, phase=phase)
+           for stage, phase in (("init", "mobilenet_step"),
+                                ("split", "mobilenet_split_step"))}
+    for stage, r in out.items():
+        for k, v in r["losses"].items():
+            if k.endswith("normal_loss"):
+                check(v > 0, f"mobilenet {stage}: {k} = {v}")
+    turns = {}
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for stage in ("init", "split"):
+        key = STATE_KEY[stage]
+        fns = {"conv": stage_step_fn(sc, stage),
+               "mobilenet": stage_step_fn(msc, stage)}
+        ms = {k: [] for k in fns}
+        for _ in range(steps):
+            for k, fn in fns.items():
+                ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+                ev[0].record()
+                sc[key], _ = fn(sc[key], sc["target"], gen)
+                ev[1].record()
+                ev[1].synchronize()
+                ms[k].append(ev[0].elapsed_time(ev[1]))
+        turns[stage] = ms
+    emit("mobilenet", features_rel_l2=errs,
+         crop=msc["cfg"].loss.perceptual_crop, steps=steps,
+         mean_ms={k: r["mean_ms"] for k, r in out.items()},
+         peak_mem_gib={k: r["peak_mem_gib"] for k, r in out.items()},
+         turns_ms=turns)
+    return {what: {k: sum(r[what][k] for r in out.values())
+                   for k in out["init"][what]}
+            for what in ("launches", "calls")}
+
+
+def texel_edge_distance(shape, res: int):
+    """Per pixel of ``cubemap_to_latlong(cube, shape)`` at ``res`` a face,
+    in float64: the least distance, in texels, of its texel coordinates
+    to a texel edge, or of its direction to a tie of the major axis."""
+    import numpy as np
+
+    H, W = shape
+    th = (np.arange(H) + 0.5) / H * np.pi
+    ph = ((np.arange(W) + 0.5) / W - 0.5) * 2 * np.pi
+    th, ph = np.meshgrid(th, ph, indexing="ij")
+    d = np.stack([np.sin(th) * np.sin(ph), np.cos(th),
+                  -np.sin(th) * np.cos(ph)], -1)
+    ad = np.abs(d)
+    major = ad.max(-1)
+    srt = np.sort(ad, -1)
+    tie = (srt[..., 2] - srt[..., 1]) * res
+    coords = (d / major[..., None] + 1) * 0.5 * res
+    # the two in-face coordinates are the two minor components, up to sign
+    minor = np.where(ad == major[..., None], np.nan, coords)
+    edge = np.nanmin(np.abs(minor - np.round(minor)), -1)
+    return np.minimum(edge, tie)
+
+
+AUX_SIZES = {"full": dict(cube=32, points=4096, tets_grid=48),
+             "tiny": dict(cube=8, points=256, tets_grid=12)}
+
+
+def phase_aux(sc: dict, scale: str, device: str, out_dir: str) -> dict:
+    """Each API-only module once on ``device`` against the CPU (values
+    abs 1e-5 + rel 1e-5, gradients rel-L2 1e-3, the gradient tolerance of
+    the ticks: a clamp at its bound, as the edge loss's cosine of a flat
+    fan, may pass or stop the gradient on one device): the edge normal
+    consistency loss on the scene's init extraction, the dense
+    ``antialias`` and the bilateral denoiser at the training resolution,
+    the cubemap conversions and prefilters at AUX_SIZES' face size from
+    the scene's probe, ``CondBNDecoder`` and ``LPIPSLike`` at their
+    default widths (LPIPS on the perceptual crop); on the host,
+    ``tetrahedralize_interior`` of the SMPL template and a material file's
+    round trip. Returns the kernels' launches and calls in the device
+    calls, and their kernel inputs by call site."""
+    import numpy as np
+    import torch
+
+    from d3human_tpu_torch.models.condbn import CondBNDecoder
+    from d3human_tpu_torch.models.perceptual import LPIPSLike
+    from d3human_tpu_torch.ops.denoiser import BilateralDenoiser
+    from d3human_tpu_torch.ops.mesh_ops import edge_normal_consistency_loss
+    from d3human_tpu_torch.ops.rasterizer import (
+        Rast, antialias, rasterize, xfm_points,
+    )
+    from d3human_tpu_torch.pipeline.tetrahedralize import (
+        tetrahedralize_interior,
+    )
+    from d3human_tpu_torch.render import cubemap, material
+
+    a = AUX_SIZES[scale]
+    p, cfg = sc["params"], sc["cfg"]
+    res = tuple(cfg.render.train_res)
+    gen = torch.Generator().manual_seed(13)
+    with torch.no_grad():
+        m = sc["model"].get_meshes(p["geometry"], p["pose"], 0)
+        v_clip = xfm_points(m.verts_posed, sc["target"]["mvp"])
+        rast = rasterize(v_clip, m.mesh.faces, m.mesh.face_valid, res,
+                         **(sc["raster_opts"] or {}))
+    faces, fvalid = m.mesh.faces, m.mesh.face_valid
+
+    def host(x):
+        return tree_map(lambda t: t.detach().cpu() if isinstance(
+            t, torch.Tensor) else t, x)
+
+    # each case: (inputs made on the CPU, fn(inputs on a device) -> outputs,
+    # the indices of the inputs whose gradients are compared)
+    rgb = torch.rand((*res, 3), generator=gen)
+    nrm = torch.nn.functional.normalize(torch.randn((*res, 3),
+                                                    generator=gen), dim=-1)
+    z = 1.0 + 0.1 * torch.rand((*res, 1), generator=gen)
+    probe = host(p["light"]["base"]) * (torch.rand(
+        tuple(p["light"]["base"].shape), generator=gen) + 0.5)
+    cbn = CondBNDecoder()
+    cbn_p = host(cbn.init(torch.Generator().manual_seed(14), "cpu"))
+    cbn_p = tree_map(lambda t: t + 0.05 * torch.randn(
+        tuple(t.shape), generator=gen), cbn_p)
+    lp = LPIPSLike()
+    lp_p = host(lp.init(None, "cpu"))
+    crop = cfg.loss.perceptual_crop
+    cases = {
+        "edge_normal_consistency": (
+            [host(m.verts_posed), host(faces), host(fvalid)],
+            lambda v, f, w: edge_normal_consistency_loss(v, f, w), [0]),
+        "antialias": (
+            [torch.rand((*res, 4), generator=gen), host(v_clip), host(faces),
+             host(rast.tri_id), host(rast.zbuf)],
+            lambda c, v, f, ti, zb: antialias(c, v, f, Rast(ti, zb)), [0, 1]),
+        "denoiser": (
+            [rgb, nrm, z], lambda c, n, d: BilateralDenoiser()(c, n, d),
+            [0]),
+        "cubemap": (
+            [probe, torch.rand((6, a["cube"], a["cube"], 3), generator=gen)],
+            lambda ll, cube: (
+                cubemap.latlong_to_cubemap(ll, a["cube"]),
+                cubemap.diffuse_prefilter(cube),
+                cubemap.specular_prefilter(cube, 0.5),
+                *cubemap.specular_mip_chain(cube, 4)), [0, 1]),
+        # nearest texel: held below by the texel edges' float64 distance
+        "cubemap_to_latlong": (
+            [torch.rand((6, a["cube"], a["cube"], 3), generator=gen)],
+            lambda cube: cubemap.cubemap_to_latlong(
+                cube, (2 * a["cube"], 4 * a["cube"])), [0]),
+        "condbn": (
+            [cbn_p, torch.randn((2, a["points"], 3), generator=gen),
+             torch.randn((2, cbn.latent_dim), generator=gen)],
+            lambda q, x, c: cbn.apply(q, x, c), [1]),
+        "lpips": (
+            [lp_p, torch.rand((1, crop, crop, 3), generator=gen),
+             torch.rand((1, crop, crop, 3), generator=gen)],
+            lambda q, x, y: lp.distance(q, x, y), [1]),
+    }
+    def run(name, dev):
+        args, fn, wrt = cases[name]
+        xs = [tree_map(lambda t: t.detach().to(dev).requires_grad_(i in wrt)
+                       if isinstance(t, torch.Tensor) else t, x)
+              for i, x in enumerate(args)]
+        outs, secs = timed(dev, lambda: fn(*xs))
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        wts = [torch.randn(tuple(o.shape), generator=torch.Generator()
+                           .manual_seed(15)).to(dev) for o in outs]
+        sum((o * w).sum() for o, w in zip(outs, wts)).backward()
+        sync(dev)
+        return dict(outs=[o.detach().cpu() for o in outs], secs=secs,
+                    grads=[xs[i].grad.detach().cpu() for i in wrt])
+
+    # the device's calls first (recorded by call site on the card), then
+    # the CPU's
+    reset_counts()
+    with (recording_kernel_inputs() if device == "cuda"
+          else contextlib.nullcontext({})) as inputs:
+        got = {name: run(name, device) for name in cases}
+    counts = read_counts()
+    calls = counts.pop("calls")
+    report = {}
+    for name in cases:
+        want = run(name, "cpu")
+        g = got[name]
+        if name == "cubemap_to_latlong":
+            # a lookup whose texel coordinate lies within float32 rounding
+            # of a texel's edge may take the neighbour on one device
+            moved = (g["outs"][0] != want["outs"][0]).any(-1).numpy()
+            near = texel_edge_distance(moved.shape, a["cube"]) < 1e-3
+            check(bool((near | ~moved).all()),
+                  f"aux {name}: {int((moved & ~near).sum())} pixels took "
+                  "another texel away from any texel edge")
+            report[name + "_edge_pixels_moved"] = int(moved.sum())
+            g = dict(g, outs=[torch.where(torch.as_tensor(moved)[..., None],
+                                          want["outs"][0], g["outs"][0])],
+                     grads=want["grads"] if moved.any() else g["grads"])
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(g["outs"], want["outs"]))
+        g_err = max(rel_l2(a, b) for a, b in zip(g["grads"], want["grads"]))
+        check(all(bool(((a - b).abs() <= 1e-5 + 1e-5 * b.abs()).all())
+                  for a, b in zip(g["outs"], want["outs"])),
+              f"aux {name}: {err} beyond abs 1e-5 + rel 1e-5")
+        check(g_err <= 1e-3, f"aux {name}: gradient rel-L2 {g_err}")
+        check(all(float(a.abs().max()) > 0 for a in g["grads"]),
+              f"aux {name}: a zero gradient")
+        report[name] = dict(max_abs_err=err, grad_rel_l2=g_err,
+                            seconds=g["secs"], cpu_seconds=want["secs"],
+                            shapes=[list(o.shape) for o in g["outs"]])
+    if device == "cuda":
+        check(counts["coo_scatter_add"] > 0, "aux: the scatter never "
+              "launched")
+    canon = sc["scene"].canon.vs_template[0].detach().cpu().numpy()
+    tri = np.asarray(sc["scene"].model.faces, np.int64)
+    (tv, tt), tet_s = timed("cpu", lambda: tetrahedralize_interior(
+        canon, tri, grid_res=a["tets_grid"]))
+    check(len(tt) > 0 and int(tt.max()) < len(tv),
+          "aux: tetrahedralize_interior gave no tets")
+    mat = {"name": "skin", "bsdf": "pbr", "kd": [0.8, 0.5, 0.25],
+           "ks": [0.0, 0.5, 0.1]}
+    path = os.path.join(out_dir, "aux", "skin.mtl")
+    material.save_mtl(path, mat)
+    back = material.load_mtl(path)[0]
+    check(back["name"] == "skin" and back["bsdf"] == "pbr"
+          and np.allclose(back["kd"], mat["kd"])
+          and np.allclose(back["ks"], mat["ks"]),
+          f"aux: the material round trip gave {back}")
+    report["tetrahedralize_interior"] = dict(
+        verts=len(canon), faces=len(tri), tet_verts=len(tv), tets=len(tt),
+        grid_res=a["tets_grid"], seconds=tet_s)
+    report["material"] = dict(bytes=os.path.getsize(path))
+    emit("aux", tolerance="abs 1e-5 + rel 1e-5, gradients rel-L2 1e-3",
+         faces=int(faces.shape[0]), live_faces=int(fvalid.sum()),
+         resolution=list(res), launches=counts, calls=calls, **report)
+    return dict(launches=counts, calls=calls, inputs=inputs)
 
 
 def sync(device) -> None:
@@ -1577,17 +2133,24 @@ def phase_cli_kernels(rows: list, inputs: dict, key: str = "cli") -> None:
     biggest resolve call, the seq stage's on the seq template's binning):
     phase ``<key>_kernels``. Adds to those kernels' rows a ``key`` entry
     (``cli`` for the synthetic run, ``capture`` for the capture's)."""
-    import torch
-
-    phase = f"{key}_kernels"
     check(set(inputs) == {"first_k_indices", "coo_scatter_add",
                           "resolve_tiles_indexed"},
-          f"{phase}: recorded calls of {sorted(inputs)}")
+          f"{key}_kernels: recorded calls of {sorted(inputs)}")
+    check(any(site.endswith(" seq") for site in inputs[
+        "resolve_tiles_indexed"]),
+          f"{key}_kernels: no resolve call of the seq stage")
+    phase_path_kernels(rows, inputs, key)
+
+
+def phase_path_kernels(rows: list, inputs: dict, key: str) -> None:
+    """The kernels at a path's recorded inputs (``check_recorded``):
+    phase ``<key>_kernels``; each kernel the path called gains a ``key``
+    entry in its row."""
+    import torch
+
     got = check_recorded(key, inputs, torch.Generator(
         device="cuda").manual_seed(4))
-    check(any(site.endswith(" seq") for site in got["resolve_tiles_indexed"]),
-          f"{phase}: no resolve call of the seq stage")
-    emit(phase, exact_first_k_and_resolve=True,
+    emit(f"{key}_kernels", exact_first_k_and_resolve=True,
          scatter_tolerance="rel 1e-5 abs 1e-6",
          calls_by_site={k: {site: s["calls"] for site, s in v.items()}
                         for k, v in inputs.items()},
@@ -2140,6 +2703,93 @@ def resume_cli(argv: list, parity_samples, parity: dict, device) -> dict:
 # scale's training resolution and frame count, the body model of the
 # capture_data phase's SMPL-X check (vertices and faces; 55 joints,
 # shapedirs [V, 3, 400], posedirs [V, 3, 486] at every scale)
+BAKE_SCALES = {"full": dict(res=2048, check_res=256),
+               "tiny": dict(res=64, check_res=32)}
+
+
+def phase_bake(scale: str, device: str, cli_root: str) -> dict:
+    """The port's bake entry point (``d3human_tpu_torch.scripts.
+    bake_texture``) on a CLI run (``phase_cli``'s root): its init
+    checkpoint and ``init/watertight_imesh_final.obj`` under the run's
+    config, at BAKE_SCALES' resolution with ``--atlas lscm`` and with
+    ``--atlas grid``. Per atlas: faces, charts, the unwrap's seconds, the
+    bake's seconds on the device, then the UV rasterization and the
+    texture lookups of that bake timed alone, the files written; the
+    device's ``render_uv`` at ``check_res`` against the CPU's on the same
+    atlas and checkpoint (masks exact, kd and ks abs 1e-5)."""
+    import torch
+
+    from d3human_tpu_torch.ops.rasterizer import (
+        barycentrics, interpolate, rasterize_bruteforce,
+    )
+    from d3human_tpu_torch.render.texture2d import UV_ROWS, render_uv
+    from d3human_tpu_torch.scripts import bake_texture
+
+    b = BAKE_SCALES[scale]
+    run = os.path.join(cli_root, "out")
+    out = {}
+    for atlas in ("lscm", "grid"):
+        dst = os.path.join(cli_root, f"bake_{atlas}")
+        args = bake_texture.parse_args([
+            "--run", run, "--stage", "init", "--mesh",
+            os.path.join(run, "init", "watertight_imesh_final.obj"),
+            "--res", str(b["res"]), "--atlas", atlas, "--out", dst,
+            "--config", os.path.join(cli_root, "config.json"),
+            "--device", device])
+        (r, total_s) = timed(device, lambda: bake_texture.bake(args))
+        files = {f: os.path.getsize(os.path.join(dst, f))
+                 for f in ("texture_kd.png", "texture_ks.png",
+                           "mesh_uv.obj")}
+        mask = r["mask"]
+        check(0.05 < float(mask.mean()) < 1.0,
+              f"bake {atlas}: {float(mask.mean())} of the texels covered")
+        check(bool(torch.isfinite(r["kd"]).all()
+                   and torch.isfinite(r["ks"]).all()),
+              f"bake {atlas}: non-finite texels")
+        # the bake's two parts alone: the UV rasterization, the lookups
+        dev = mask.device
+        res = (b["res"], b["res"])
+        vt = torch.as_tensor(r["v_tex"], dtype=torch.float32, device=dev)
+        ti = torch.as_tensor(r["t_tex_idx"], dtype=torch.int64, device=dev)
+        tp = torch.as_tensor(r["faces"], dtype=torch.int64, device=dev)
+        vp = torch.as_tensor(r["verts"], dtype=torch.float32, device=dev)
+        uv_clip = torch.cat([vt * 2 - 1, torch.zeros_like(vt[:, :1]),
+                             torch.ones_like(vt[:, :1])], -1)
+        fv = torch.ones((ti.shape[0],), dtype=torch.bool, device=dev)
+        with torch.no_grad():
+            rast, raster_s = timed(device, lambda: rasterize_bruteforce(
+                uv_clip, ti, fv, res, pixel_chunk=UV_ROWS * res[1]))
+            bary, _ = barycentrics(uv_clip, ti, rast, res)
+            pos = interpolate(vp, bary, tp, rast)
+            tex, mat = r["tex"], r["material"]
+            _, lookup_s = timed(device, lambda: tex.sample(mat, pos))
+        check(torch.equal(rast.tri_id > 0, mask[..., 0] > 0),
+              f"bake {atlas}: the timed rasterization differs")
+        # the device's render_uv against the CPU's at check_res
+        small = (b["check_res"], b["check_res"])
+        cpu_mat = tree_map(lambda t: t.cpu(), mat)
+        cpu_tex = bake_texture.texture_module(args.config, "cpu")
+        with torch.no_grad():
+            got = render_uv(vp, vt, ti, tp, small, tex, mat)
+            want = render_uv(vp.cpu(), vt.cpu(), ti.cpu(), tp.cpu(), small,
+                             cpu_tex, cpu_mat)
+        check(torch.equal(got[0].cpu(), want[0]),
+              f"bake {atlas}: masks differ from the CPU's")
+        err = max(float((g.cpu() - w).abs().max())
+                  for g, w in zip(got[1:], want[1:]))
+        check(err <= 1e-5, f"bake {atlas}: {err} from the CPU's bake")
+        out[atlas] = dict(
+            res=b["res"], faces=len(r["faces"]), verts=len(r["verts"]),
+            uv_verts=len(r["v_tex"]), charts=r["n_charts"],
+            unwrap_s=r["unwrap_s"], bake_s=r["bake_s"], total_s=total_s,
+            uv_raster_s=raster_s, texture_lookup_ms=lookup_s * 1e3,
+            covered=float(mask.mean()), files=files,
+            check_res=b["check_res"], max_abs_err_vs_cpu=err)
+    emit("bake", checkpoint=os.path.relpath(r["checkpoint"], cli_root),
+         **out)
+    return out
+
+
 CAPTURE_SCALES = {"full": dict(res=1080, body=(10475, 20908)),
                   "tiny": dict(res=48, body=(400, 796))}
 CAPTURE_DIR = "d3human_tpu_torch/build/smoke_capture"
@@ -2596,6 +3246,14 @@ def main() -> int:
     paths["seq_step"] = phase_step(sc, "seq", SEQ_STEPS)
     phase_profile("seq step", lambda: one_more_step(sc, "seq"))
     phase_seq_knn(sc)
+    pbr = phase_pbr(sc, "cuda")
+    phase_path_kernels(rows, pbr.pop("inputs"), "pbr")
+    paths["pbr"] = pbr
+    paths["mobilenet"] = phase_mobilenet(sc, MOBILENET_STEPS)
+    aux = phase_aux(sc, "full", "cuda", os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), AUX_DIR))
+    phase_path_kernels(rows, aux.pop("inputs"), "aux")
+    paths["aux"] = aux
     # the CLI builds everything anew: the scenes of the phases above go
     del sc
     gc.collect()
@@ -2605,6 +3263,8 @@ def main() -> int:
         os.path.dirname(os.path.abspath(__file__)), CLI_DIR))
     paths["cli"] = {k: cli[k] for k in ("launches", "calls")}
     phase_cli_kernels(rows, cli.pop("inputs"))
+    phase_bake("full", "cuda", os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), CLI_DIR))
     del cli
     capture_root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 CAPTURE_DIR)
@@ -2620,8 +3280,10 @@ def main() -> int:
         # launches: the kernel's launches on the driven paths (INIT_STEPS
         # init steps, SPLIT_STEPS split steps, one validation render of
         # each half, the surgery, SURGERY_SEQ_STEPS seq steps on its
-        # template, SEQ_STEPS seq steps, the CLI's first run on the
-        # synthetic scene and its run on the exported capture); first_k
+        # template, SEQ_STEPS seq steps, the pbr renders, MOBILENET_STEPS
+        # init and split steps with the MobileNetV2 backbone, the API-only
+        # modules, the CLI's first run on the synthetic scene and its run
+        # on the exported capture); first_k
         # counts its count and write launches, the scatter each launch of
         # its two sum kernels, and their calls are the calls of the wrapper
         for what in ("launches", "calls"):
@@ -2634,6 +3296,11 @@ def main() -> int:
          validate={"renders": 2, "layers": VAL_LAYERS},
          surgery={"runs": 1}, surgery_seq_step={"steps": SURGERY_SEQ_STEPS},
          seq_step={"steps": SEQ_STEPS},
+         pbr={"forward_backward": PBR_RENDERS, "forward": 1,
+              "shadowed_forward": 1},
+         mobilenet={"init_steps": MOBILENET_STEPS,
+                    "split_steps": MOBILENET_STEPS},
+         aux={"modules": 6},
          cli={"runs": 1, "scale": "full"},
          capture={"runs": 1, "scale": "full"},
          launches={k: v["launches"] for k, v in paths.items()},

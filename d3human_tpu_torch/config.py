@@ -131,10 +131,11 @@ class LossConfig:
     use_mesh_msdf_reg: bool = True
     perceptual_crop: int = 448
     collision_push_eps: float = 0.005
-    # "conv" (ConvPerceptual), "pyramid", "none"; "mobilenet" needs weights
-    # the repo does not hold (models/perceptual.py)
+    # "conv" (ConvPerceptual), "pyramid", "none" or "mobilenet"
+    # (models/mobilenet.py: the npz's weights when it exists, else the
+    # He-init fallback; the repo holds no npz)
     perceptual_backbone: str = "conv"
-    perceptual_npz: str = "d3human_tpu/data/mobilenet_v2_features.npz"
+    perceptual_npz: str = "d3human_tpu_torch/data/mobilenet_v2_features.npz"
 
 
 @dataclass(frozen=True)

@@ -11,7 +11,11 @@ A tree without material or light converts to one without.
 package's texture config and material range; ``perceptual_from_jax`` turns
 ConvPerceptual's HWIO filters into PyTorch's OIHW; ``template_from_jax``
 turns a seq template with the JAX ``SeqTemplate``'s fields (numpy arrays)
-into the port's.
+into the port's. ``mobilenet_from_jax`` turns MobileNetFeatures' HWIO
+weights (depthwise included) into OIHW; ``lpips_from_jax`` carries
+LPIPSLike's backbone and ``lin`` weights; ``tree_from_jax`` carries a tree
+whose layout both packages share (``CondBNDecoder``'s ``{"w", "b"}``
+linears, ``Texture2D``'s ``{"data"}``, the light's ``{"base"}``).
 """
 
 from __future__ import annotations
@@ -65,3 +69,27 @@ def template_from_jax(jtemplate, device="cuda"):
         f.name: None if getattr(jtemplate, f.name) is None
         else torch.as_tensor(np.array(getattr(jtemplate, f.name))).to(device)
         for f in dataclasses.fields(SeqTemplate)})
+
+
+def tree_from_jax(tree, device="cuda"):
+    """A tree of numpy arrays (dicts, lists) as the same tree of tensors."""
+    return _to_torch(tree, device)
+
+
+def mobilenet_from_jax(params: dict, device="cuda") -> dict:
+    """MobileNetFeatures' arrays in the JAX layout (``s<i>_<name>_w`` HWIO,
+    a depthwise one [3, 3, 1, C]; ``_b``), from its params or its npz, as
+    the port's OIHW tensors (a depthwise one [C, 1, 3, 3])."""
+    out = {}
+    for k, a in params.items():
+        t = torch.as_tensor(np.array(a, np.float32))
+        if k.endswith("_w"):
+            t = t.permute(3, 2, 0, 1)
+        out[k] = t.contiguous().to(device)
+    return out
+
+
+def lpips_from_jax(params: dict, device="cuda") -> dict:
+    """LPIPSLike's {"backbone": ConvPerceptual's, "lin": [C_i]}."""
+    return {"backbone": perceptual_from_jax(params["backbone"], device),
+            "lin": _to_torch(params["lin"], device)}

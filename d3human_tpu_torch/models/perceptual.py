@@ -4,7 +4,9 @@
 convolutions with ReLU, compared by mean L1 per tap and averaged over the
 taps. ``PyramidPerceptual``: the weight-free Laplacian-pyramid loss.
 ``NullPerceptual``: no perceptual term. ``make_perceptual`` picks one by
-``loss.perceptual_backbone``; the MobileNetV2 backbone is not ported.
+``loss.perceptual_backbone``, the MobileNetV2 features
+(``models/mobilenet.py``) among them. ``LPIPSLike``: an LPIPS-style
+distance over ConvPerceptual's taps.
 
 Weights are PyTorch's OIHW ``[cout, cin, 3, 3]`` (``convert.py`` turns the
 JAX package's HWIO filters into it); images are NHWC at the interface like
@@ -14,6 +16,7 @@ the JAX side. The convolution runs through
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -126,15 +129,53 @@ class NullPerceptual:
         return torch.zeros((), dtype=x.dtype, device=x.device)
 
 
-def make_perceptual(backbone: str, device="cuda"):
+class LPIPSLike:
+    """LPIPS-style distance (JAX ``models/perceptual.py:174``): each tap's
+    channel vector unit-normalised per pixel, the squared difference
+    weighted per channel by ``lin`` (uniform 1/C unless an npz of
+    ``lin_<i>`` arrays overrides it), summed over channels, averaged over
+    space and over the taps."""
+
+    def __init__(self, channels: Sequence[int] = (24, 48, 96),
+                 seed: int = 11):
+        self.backbone = ConvPerceptual(channels=channels, seed=seed)
+
+    def init(self, weights_npz: Optional[str] = None,
+             device="cuda") -> Params:
+        params = {"backbone": self.backbone.init(device),
+                  "lin": [torch.ones((c,), device=device) / c
+                          for c in self.backbone.channels]}
+        if weights_npz is not None and os.path.exists(weights_npz):
+            with np.load(weights_npz) as z:
+                params["lin"] = [
+                    torch.as_tensor(np.array(z[f"lin_{i}"], np.float32))
+                    .to(device) for i in range(len(self.backbone.channels))]
+        return params
+
+    def distance(self, params: Params, x: torch.Tensor,
+                 y: torch.Tensor) -> torch.Tensor:
+        fx = self.backbone.features(params["backbone"], x)
+        fy = self.backbone.features(params["backbone"], y)
+        total = 0.0
+        for a, b, w in zip(fx, fy, params["lin"]):         # NCHW taps
+            na = a / torch.sqrt((a * a).sum(1, keepdim=True) + 1e-10)
+            nb = b / torch.sqrt((b * b).sum(1, keepdim=True) + 1e-10)
+            total = total + (((na - nb) ** 2) * w[:, None, None]).sum(1) \
+                .mean()
+        return total / len(fx)
+
+
+def make_perceptual(backbone: str, device="cuda",
+                    perceptual_npz: Optional[str] = None):
     """(module, params) for ``loss.perceptual_backbone`` as the JAX driver
-    picks them (``train_d3h.py:234-251``): "pyramid", "none", and
-    ConvPerceptual for any other name but "mobilenet"."""
+    picks them (``train_d3h.py:234-251``): "mobilenet" (its weights from
+    ``perceptual_npz``, else the He-init fallback with a warning),
+    "pyramid", "none", and ConvPerceptual for any other name."""
     if backbone == "mobilenet":
-        raise NotImplementedError(
-            "perceptual_backbone='mobilenet': the MobileNetV2 backbone is "
-            "not ported yet (ROADMAP.md Queue 1 item 17) and its weights "
-            "are not in the repository; use 'conv', 'pyramid' or 'none'")
+        from d3human_tpu_torch.models.mobilenet import MobileNetFeatures
+
+        module = MobileNetFeatures()
+        return module, module.init(perceptual_npz, device)
     module = {"pyramid": PyramidPerceptual,
               "none": NullPerceptual}.get(backbone, ConvPerceptual)()
     return module, module.init(device)

@@ -1,7 +1,8 @@
-"""Masked mesh operations on fixed-capacity buffers (counterpart of the
-init-, split- and seq-path part of ``d3human_tpu/ops/mesh_ops.py``): the
-normals, the surface sampler, the seq stage's smoothness losses and the
-host-side face adjacency and connected components of a static mesh."""
+"""Masked mesh operations on fixed-capacity buffers (counterpart of
+``d3human_tpu/ops/mesh_ops.py``): the normals, the surface sampler, the
+seq stage's smoothness losses, the normal consistency of a mesh whose
+topology changes (``edge_normal_consistency_loss``) and the host-side
+face adjacency and connected components of a static mesh."""
 
 from __future__ import annotations
 
@@ -80,6 +81,29 @@ def normal_consistency_loss(verts: torch.Tensor, faces: torch.Tensor,
     n = gather_rows(face_normals(verts, faces), connected_faces)  # [P, 2, 3]
     cos = torch.clamp((n[:, 0] * n[:, 1]).sum(-1), -1.0, 1.0)
     return ((1.0 - cos) ** 2).mean()
+
+
+def edge_normal_consistency_loss(verts: torch.Tensor, faces: torch.Tensor,
+                                 face_valid: torch.Tensor) -> torch.Tensor:
+    """Normal consistency for meshes whose adjacency cannot be precomputed:
+    each live face normal's mean deviation (1 - cos) / 2 from the mean
+    normal of its three vertices, averaged over the live faces. The
+    per-vertex [normal sum | count] is ONE scatter of 3F rows x 4 (the
+    scatter kernel), the corners' mean normals one fused row gather."""
+    fn = face_normals(verts, faces)
+    w = face_valid.to(verts.dtype)
+    fw = torch.cat([fn * w[:, None], w[:, None]], dim=-1)
+    acc = segment_add_rows(fw.repeat(3, 1), faces.T.reshape(-1),
+                           verts.shape[0])
+    mean_n = safe_normalize(acc[:, :3] / torch.clamp_min(acc[:, 3], 1.0)
+                            [:, None])
+    corner_n = gather_rows(mean_n, faces)                 # [F, 3, 3]
+    dev = 0.0
+    for k in range(3):
+        cos = torch.clamp((fn * corner_n[:, k]).sum(-1), -1, 1)
+        dev = dev + (1.0 - cos) * 0.5
+    dev = dev / 3.0
+    return (dev * w).sum() / torch.clamp_min(w.sum(), 1.0)
 
 
 def find_connected_faces(faces: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:

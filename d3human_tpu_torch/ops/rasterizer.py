@@ -12,7 +12,9 @@ the binning runs once and the resolve repeats with the previous layer's keys
 as the floor.
 ``rasterize_bruteforce`` is the oracle: every pixel tests every live face
 through ``_resolve_tile``, which orders by float (z, id) as the JAX
-package's XLA path does. It is plain PyTorch on the card too, by design:
+package's XLA path does (a pixel chunk skips the faces whose bounding box
+misses its rows, which changes no answer). It is plain PyTorch on the
+card too, by design:
 the JAX package computes it outside any Pallas kernel (it renders the
 synthetic ground truth and checks the binned rasterizer), so it is no
 kernel port and has no CUDA counterpart.
@@ -21,7 +23,8 @@ Gradients come from ``barycentrics_compact`` (perspective-correct
 barycentrics recomputed from clip-space corners at each covered pixel) and
 from the sparse silhouette antialiasing of ``aa_geometry_compact`` /
 ``apply_aa_sparse``; the dense path has ``barycentrics`` / ``interpolate``
-and ``aa_weights`` / ``apply_aa`` over every neighbour pair.
+and ``aa_weights`` / ``apply_aa`` over every neighbour pair (``antialias``
+is the two in one call).
 """
 
 from __future__ import annotations
@@ -293,14 +296,18 @@ def _resolve_tile(pix: torch.Tensor, face_ids: torch.Tensor, A, C, az, bz,
 def rasterize_bruteforce(verts_clip: torch.Tensor, faces: torch.Tensor,
                          face_valid: torch.Tensor,
                          resolution: Tuple[int, int], layers: int = 1,
-                         pixel_chunk: int = 1 << 18):
+                         pixel_chunk: int = 1 << 18, cull: bool = True):
     """Oracle rasterizer (JAX ``d3human_tpu/ops/rasterizer.py:373``): every
     pixel tests every live face, no binning and no capacity. Pixels go
     through ``_resolve_tile`` ``pixel_chunk`` at a time, so the scratch is
     bounded ([pixel_chunk, 128, 3] edge values); the answer does not
-    depend on the chunk. ``layers > 1`` depth-peels with the (z, id + 1)
-    floor and returns a tuple of ``Rast`` near to far. Plain PyTorch on
-    every device (see the module docstring)."""
+    depend on the chunk. With ``cull`` (and more than one block of faces)
+    a chunk tests only the live faces whose screen bounding box, grown by
+    a pixel, meets the chunk's rows, in ascending id order: each pixel
+    keeps the least (z, id) of the faces that cover it, so the answer is
+    the same, ties included. ``layers > 1`` depth-peels with the
+    (z, id + 1) floor and returns a tuple of ``Rast`` near to far. Plain
+    PyTorch on every device (see the module docstring)."""
     verts_clip = verts_clip.detach()
     H, W = resolution
     dev = verts_clip.device
@@ -317,15 +324,37 @@ def rasterize_bruteforce(verts_clip: torch.Tensor, faces: torch.Tensor,
     px, py = _pixel_centers(resolution, dev)
     pix = torch.stack([px.reshape(-1), py.reshape(-1)], dim=-1)
     all_ids = torch.arange(faces.shape[0], dtype=torch.int32, device=dev)
+    cull = cull and faces.shape[0] > 128
+    y_lo, y_hi = (y.amin(1), y.amax(1)) if cull else (None, None)
+    chunks = []
+    for s in range(0, H * W, pixel_chunk):
+        e = min(s + pixel_chunk, H * W)
+        if cull:
+            # pixel centres of the chunk's rows lie in [s // W + 0.5,
+            # (e - 1) // W + 0.5]
+            keep = live & (y_lo <= (e - 1) // W + 1.5) \
+                & (y_hi >= s // W - 0.5)
+            sel = torch.nonzero(keep)[:, 0]
+            chunks.append((s, e, all_ids[sel], A[sel], C[sel], az[sel],
+                           bz[sel], cz[sel], live[sel]))
+        else:
+            chunks.append((s, e, all_ids, A, C, az, bz, cz, live))
     out, fz, fi = [], None, None
     for _ in range(layers):
-        parts = [_resolve_tile(
-            pix[s:s + pixel_chunk], all_ids, A, C, az, bz, cz, live,
-            floor_z=None if fz is None else fz[s:s + pixel_chunk],
-            floor_id=None if fi is None else fi[s:s + pixel_chunk])
-            for s in range(0, H * W, pixel_chunk)]
-        ids = torch.cat([p[0] for p in parts])
-        zs = torch.cat([p[1] for p in parts])
+        ids, zs = [], []
+        for s, e, *faces_c in chunks:
+            if faces_c[0].shape[0] == 0:
+                ids.append(torch.zeros((e - s,), dtype=torch.int32,
+                                       device=dev))
+                zs.append(torch.full((e - s,), BG_SENTINEL_Z, device=dev))
+                continue
+            i_c, z_c = _resolve_tile(
+                pix[s:e], *faces_c,
+                floor_z=None if fz is None else fz[s:e],
+                floor_id=None if fi is None else fi[s:e])
+            ids.append(i_c)
+            zs.append(z_c)
+        ids, zs = torch.cat(ids), torch.cat(zs)
         out.append(Rast(tri_id=ids.reshape(H, W), zbuf=zs.reshape(H, W)))
         fz, fi = zs, ids
     return out[0] if layers == 1 else tuple(out)
@@ -584,6 +613,14 @@ def apply_aa(color: torch.Tensor, weights) -> torch.Tensor:
         color = color + (torch.nn.functional.pad(d_a, pad_a)
                          + torch.nn.functional.pad(d_b, pad_b))
     return color
+
+
+def antialias(color: torch.Tensor, verts_clip: torch.Tensor,
+              faces: torch.Tensor, rast: Rast) -> torch.Tensor:
+    """Silhouette antialiasing of one [H, W, C] buffer: the dense AA
+    geometry of ``rast`` (``aa_weights``) applied by ``apply_aa``."""
+    return apply_aa(color, aa_weights(verts_clip, faces, rast,
+                                      color.shape[:2]))
 
 
 def visible_face_mask(rast: Rast, n_faces: int) -> torch.Tensor:

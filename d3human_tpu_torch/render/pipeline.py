@@ -14,13 +14,15 @@
   back-to-front composite and per-layer antialiasing.
 
 Shading is albedo-only (``bsdf="kd"``, what the reference forces at run
-time) or the two-sided normal (``"normal"``). The environment-light
-shading (``"pbr"``) is not ported. ``use_bruteforce_raster`` routes the
-full path through the oracle rasterizer (``rasterize_bruteforce``).
+time), the two-sided normal (``"normal"``) or the environment light
+(``"pbr"``, full path only: ``render/envshade.py`` with ``light_params``,
+optionally shadowed by an ``sdf_fn``). ``use_bruteforce_raster`` routes
+the full path through the oracle rasterizer (``rasterize_bruteforce``).
 
 Random draws (texture jitter ``0.01 N(0,1)``, normal-tap jitter
-``0.005 N(0,1)``) come from ``generator`` unless ``draws = (n_tex, n_uv)``
-injects the standard normals (tests pass the JAX package's).
+``0.005 N(0,1)``, and under ``"pbr"`` the light sampler's two uniform
+vectors) come from ``generator`` unless ``draws = (n_tex, n_uv)`` or
+``(n_tex, n_uv, (uy, ux))`` injects them (tests pass the JAX package's).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from d3human_tpu_torch.ops.rasterizer import (
     visible_face_mask, xfm_points,
 )
 from d3human_tpu_torch.ops.scatter import gather_rows
+from d3human_tpu_torch.render.envshade import env_shade
 
 
 class MeshBuffers(NamedTuple):
@@ -118,6 +121,10 @@ def render_mesh(
     max_covered_frac: float = 0.5,
     aa_all_buffers: bool = False,
     bsdf: str = "kd",
+    light_params=None,
+    n_light_samples: int = 8,
+    shadow_scale: float = 1.0,
+    sdf_fn=None,
     compact: Optional[bool] = None,
     aa_max_pairs: Optional[int] = None,
     aa_z_thresh: float = 0.01,
@@ -129,7 +136,7 @@ def render_mesh(
     draws=None,
 ) -> MeshBuffers:
     """The compacted training path where it applies (the default), else the
-    full-image path (validation, spp > 1, layers > 1)."""
+    full-image path (validation, spp > 1, layers > 1, ``bsdf="pbr"``)."""
     if compact is None:
         compact = (spp == 1 and bsdf == "kd" and not use_bruteforce_raster
                    and not aa_all_buffers and 0 < max_covered_frac < 1
@@ -149,7 +156,9 @@ def render_mesh(
         msdf_attr=msdf_attr, face_labels=face_labels, v_nrm=v_nrm, spp=spp,
         use_bruteforce_raster=use_bruteforce_raster, raster_opts=raster_opts,
         max_covered_frac=max_covered_frac, aa_all_buffers=aa_all_buffers,
-        bsdf=bsdf, layers=layers, draws=draws)
+        bsdf=bsdf, light_params=light_params,
+        n_light_samples=n_light_samples, shadow_scale=shadow_scale,
+        sdf_fn=sdf_fn, layers=layers, draws=draws)
 
 
 def _antialias_compact(aa_in, v_clip, faces, rast, resolution, aa_max_pairs,
@@ -348,15 +357,26 @@ def render_mesh_full(
     shade: bool = True,
     layers: int = 1,
     draws=None,
+    light_params=None,
+    n_light_samples: int = 8,
+    shadow_scale: float = 1.0,
+    sdf_fn=None,
 ) -> MeshBuffers:
     """Every buffer at image size. With ``layers > 1`` the rasterizer
     depth-peels; all per-pixel buffers come from the NEAREST layer and the
     shaded buffer is re-composited back to front across the layers, each
-    antialiased against its own silhouette."""
-    if bsdf not in ("kd", "normal"):
-        raise NotImplementedError(
-            f"bsdf={bsdf!r}: the environment-light shading (envshade, light, "
-            "cubemap) belongs to a later slice of the port")
+    antialiased against its own silhouette.
+
+    ``bsdf="pbr"`` shades by ``env_shade`` under ``light_params`` with
+    ``n_light_samples`` samples, shadowed by ``sdf_fn`` (points -> SDF,
+    positive inside) scaled by ``shadow_scale``: diffuse light times
+    ``kd * (1 - metalness)`` plus specular light. As in the JAX package,
+    ``bsdf="pbr"`` with ``light_params=None`` renders ``kd`` (and zero
+    light buffers), and the layers behind the nearest one are painted
+    with ``kd``."""
+    if bsdf not in ("kd", "normal", "pbr"):
+        raise NotImplementedError(f"bsdf={bsdf!r}: only 'kd', 'normal' and "
+                                  "'pbr' shade")
     H, W = resolution
     full_res = (H * spp, W * spp)
     dev = verts.device
@@ -391,7 +411,8 @@ def render_mesh_full(
 
     # ---- texture lookups: only covered pixels need texture, so compact
     # them (static capacity) before the lookup; the rest gets zeros
-    d_tex, d_uv = draws if draws is not None else (None, None)
+    d_tex, d_uv, d_light = (tuple(draws) + (None,))[:3] \
+        if draws is not None else (None, None, None)
     npix = full_res[0] * full_res[1]
     max_cov = int(npix * max_covered_frac) if max_covered_frac else npix
     if not shade:
@@ -460,7 +481,17 @@ def render_mesh_full(
         return apply_aa(rgba, weights) if aa else rgba
 
     zero3 = torch.zeros_like(kd)
-    shaded_col = (gb_normal_ts + 1.0) * 0.5 if bsdf == "normal" else kd
+    diffuse_l = specular_l = zero3
+    if bsdf == "pbr" and light_params is not None:
+        diffuse_l, specular_l = env_shade(
+            generator, gb_pos, gb_normal_ts, campos, kd, ks, light_params,
+            n_samples=n_light_samples, sdf_fn=sdf_fn,
+            shadow_scale=shadow_scale, draws=d_light)
+        shaded_col = diffuse_l * (kd * (1.0 - ks[..., 2:3])) + specular_l
+    elif bsdf == "normal":
+        shaded_col = (gb_normal_ts + 1.0) * 0.5
+    else:
+        shaded_col = kd
     shaded = comp(shaded_col, background)
     if layers > 1:
         # far layers are painted first; each nearer layer lerps over the
@@ -499,7 +530,7 @@ def render_mesh_full(
         visible_faces=visible_face_mask(rast, faces.shape[0]), rast=rast,
         kd=comp(kd, zero3, aa=aa_all_buffers),
         mesh_id=mesh_id,                    # NOT antialiased
-        diffuse_light=zero3, specular_light=zero3,
+        diffuse_light=diffuse_l, specular_light=specular_l,
         normal=comp(gb_normal_ts, zero3, aa=aa_all_buffers),
         depth=depth_b[..., :2], invdepth=invd_b[..., :2],
         ks=comp(ks, zero3, aa=aa_all_buffers),

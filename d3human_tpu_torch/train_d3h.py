@@ -280,7 +280,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                                      list(r.kd_max[:3]) + list(r.ks_max)),
                        dev)
     perceptual, perc_params = make_perceptual(cfg.loss.perceptual_backbone,
-                                              dev)
+                                              dev, cfg.loss.perceptual_npz)
     params = {
         "geometry": gparams,
         "pose": pose0,

@@ -310,6 +310,48 @@ def test_capture_resumed_run_equals_uninterrupted_bit_for_bit(
         np.testing.assert_array_equal(b[k], a[k], err_msg=k)
 
 
+def test_chip_smoke_bake_rehearsal(cli_run, tmp_path):
+    """chip_smoke.py's ``bake`` phase on the CLI run (its checks: texels
+    covered and finite, the timed rasterization equal to the bake's, the
+    bake at the check size equal on the CPU and the device), and the JAX
+    package's ``scripts/bake_texture.py`` on the same run: the OBJ text
+    equal, the PNGs within one 8-bit level."""
+    import sys
+
+    import imageio.v2 as imageio
+
+    import chip_smoke
+    import scripts.bake_texture as jscript
+    from d3human_tpu_torch.utils.io import load_image
+
+    root = os.path.dirname(cli_run["out_dir"])
+    out = chip_smoke.phase_bake("tiny", "cpu", root)
+    assert out["lscm"]["charts"] > 1 and out["grid"]["charts"] is None
+    for atlas in ("lscm", "grid"):
+        dst = tmp_path / atlas
+        saved = sys.argv
+        sys.argv = ["bake_texture.py", "--run", cli_run["out_dir"],
+                    "--stage", "init", "--mesh",
+                    os.path.join(cli_run["out_dir"], "init",
+                                 "watertight_imesh_final.obj"),
+                    "--res", str(chip_smoke.BAKE_SCALES["tiny"]["res"]),
+                    "--atlas", atlas, "--out", str(dst), "--config",
+                    os.path.join(root, "config.json")]
+        try:
+            jscript.main()
+        finally:
+            sys.argv = saved
+        mine = os.path.join(root, f"bake_{atlas}")
+        with open(dst / "mesh_uv.obj") as a, \
+                open(os.path.join(mine, "mesh_uv.obj")) as b:
+            assert a.read() == b.read()
+        for name in ("texture_kd.png", "texture_ks.png"):
+            want = imageio.imread(dst / name).astype(np.int16)
+            have = load_image(os.path.join(mine, name)).astype(np.int16)
+            assert want.shape == have.shape and want.max() > 0
+            assert np.abs(want - have).max() <= 1, (atlas, name)
+
+
 def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
     """A missing capture layout (the file named), --seq-parallel, a card
     that is not there; none of them writes the out dir."""

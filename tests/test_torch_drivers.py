@@ -44,15 +44,21 @@ def test_configs_load_as_in_jax(path):
 
     over = {"out_dir": "somewhere", "gender": "female"}
     j, t = J.load_config(path, over), T.load_config(path, over)
+    # the one default of the port's own: the MobileNet weights live in its
+    # own data directory (the same file layout)
+    assert t.loss.perceptual_npz == j.loss.perceptual_npz.replace(
+        "d3human_tpu/data/", "d3human_tpu_torch/data/")
+    t_as_jax = t.replace(loss=dataclasses.replace(
+        t.loss, perceptual_npz=j.loss.perceptual_npz))
     for f in dataclasses.fields(t):
-        got, want = getattr(t, f.name), getattr(j, f.name)
+        got, want = getattr(t_as_jax, f.name), getattr(j, f.name)
         if dataclasses.is_dataclass(got):
             for g in dataclasses.fields(got):
                 assert getattr(got, g.name) == getattr(want, g.name), \
                     (f.name, g.name)
         else:
             assert got == want, f.name
-    assert T.from_jax_config(j) == t
+    assert T.from_jax_config(j) == t_as_jax
     assert t.out_dir == "somewhere" and t.gender == "female"
 
 
@@ -315,11 +321,16 @@ def test_weight_free_perceptual_losses_match_jax(backbone):
     assert np.linalg.norm(xt.grad.numpy() - jg) / np.linalg.norm(jg) < 1e-4
 
 
-def test_mobilenet_backbone_is_refused():
+def test_mobilenet_backbone_is_refused(capsys):
+    """The backbone is ported (``tests/test_torch_mobilenet.py``); what is
+    refused is a named weights file that is not there: a warning, and the
+    He-init fallback, as in the JAX package."""
+    from d3human_tpu_torch.models.mobilenet import MobileNetFeatures
     from d3human_tpu_torch.models.perceptual import make_perceptual
 
-    with pytest.raises(NotImplementedError, match="item 17"):
-        make_perceptual("mobilenet", "cpu")
+    m, p = make_perceptual("mobilenet", "cpu", "nowhere/weights.npz")
+    assert isinstance(m, MobileNetFeatures) and p
+    assert "'nowhere/weights.npz' not found" in capsys.readouterr().out
 
 
 # ---------------------------------------------------------------- validation

@@ -150,10 +150,13 @@ def test_init_total_decreases_over_20_steps():
     assert metrics[-1]["total"] < metrics[0]["total"]
 
 
-def test_chip_smoke_scene_rehearsal():
+def test_chip_smoke_scene_rehearsal(tmp_path):
     """chip_smoke.py's scene set-up at its CPU-sized scale, through every
     path the script drives: an init step, a split step, the ticks with the
-    script's injected draws, and the checked validation render."""
+    script's injected draws, and the checked validation render; then the
+    paths of the environment-light render (``small_pbr`` against itself,
+    ``pbr``), the MobileNetV2 backbone (its features and one init and one
+    split step) and the API-only modules (``aux``)."""
     import chip_smoke
     from d3human_tpu_torch.train.step import stage_tick
 
@@ -177,3 +180,20 @@ def test_chip_smoke_scene_rehearsal():
             sc, name, *chip_smoke.validation_render(sc, sign, gen))
         assert len(info["layer_pixels"]) == chip_smoke.VAL_LAYERS
         assert 0 < info["alpha_mean"] < 1
+    chip_smoke.phase_small_pbr(sc, sc)
+    pbr = chip_smoke.phase_pbr(sc, "cpu")
+    assert set(pbr["launches"]) == {"first_k_indices", "coo_scatter_add",
+                                    "resolve_tiles", "resolve_tiles_peel"}
+    # the recorder saw every kernel's wrapper on the path
+    assert set(pbr["inputs"]) == {"first_k_indices", "coo_scatter_add",
+                                  "resolve_tiles_indexed"}
+    msc = chip_smoke.mobilenet_scene(sc, "cpu")
+    assert max(chip_smoke.mobilenet_features_err(msc, "cpu")) == 0.0
+    for stage, key in (("init", "state"), ("split", "split_state")):
+        _, m = chip_smoke.stage_step_fn(msc, stage)(msc[key], msc["target"],
+                                                    gen)
+        m = chip_smoke.scalars(m)
+        chip_smoke.check_step_metrics(stage, m, f"mobilenet {stage}")
+        assert all(v > 0 for k, v in m.items() if k.endswith("normal_loss"))
+    aux = chip_smoke.phase_aux(sc, "tiny", "cpu", str(tmp_path))
+    assert aux["inputs"] == {} and not any(aux["launches"].values())

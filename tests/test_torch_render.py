@@ -114,17 +114,18 @@ def test_render_mesh_full_dense_texture_and_dispatch(scene):
 
 
 def test_render_mesh_full_refuses_what_is_not_ported(scene):
-    """The environment-light shading is not ported; the oracle rasterizer
-    is (``tests/test_torch_gt.py`` holds its renders to the JAX
-    package's)."""
+    """A shading the JAX package does not name raises (the
+    environment-light shading is ported: ``tests/test_torch_envshade.py``);
+    the oracle rasterizer is ported (``tests/test_torch_gt.py`` holds its
+    renders to the JAX package's)."""
     from d3human_tpu_torch.render.pipeline import render_mesh_full as tfull
 
     j, p, mesh = scene
     res = tuple(j["cfg"].render.train_res)
     args = _args(mesh, p["target"], torch.as_tensor) + [
         res, p["tex"], p["params"]["material"], p["target"]["background"]]
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tfull(None, *args, bsdf="pbr")
+    with pytest.raises(NotImplementedError, match="only 'kd'"):
+        tfull(None, *args, bsdf="ggx")
     buf = tfull(None, *args, use_bruteforce_raster=True)
     assert int((buf.rast.tri_id > 0).sum()) > 0
 

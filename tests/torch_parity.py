@@ -170,3 +170,12 @@ def split_draws(cfg, key=KEY):
                      int(jax.random.randint(kw, (), 0, max(W - crop, 1)))),
         }
     return out
+
+
+def light_draws(k_render, n):
+    """The light sampler's uniforms in a ``bsdf="pbr"`` render from
+    ``k_render`` (pipeline.py:611 ``fold_in(key, 17)``, envshade.py:45-47):
+    (uy, ux), each [n]."""
+    k1, k2 = jax.random.split(jax.random.fold_in(k_render, 17))
+    return (_t(jax.random.uniform(k1, (n,))),
+            _t(jax.random.uniform(k2, (n,))))
