@@ -19,6 +19,12 @@ object per line (``t``: the script's seconds when the phase ended):
                against CPU with the same draws: buffers abs 1e-5, the
                light's and the texture's gradients rel-L2 1e-4; without
                and with an analytic ball as the occluder
+  small_bf16   the SDF MLP at the field config's width with
+               field.use_bfloat16 (bf16 products, float32 accumulation) on
+               16,384 points, card against CPU: output and gradients
+               within rel-L2 2^-9 and the card's result the bf16 one (at
+               least half the CPU's bf16-to-float32 distance from the
+               float32 MLP); ms of a forward + backward in bf16 and f32
   scene        the full-width bench scene: 1080^2 pixels, 128^3 lattice
                cropped to the template box + 0.1, 2^18 / 196,608
                capacities, capsule-seeded SDF, mSDF cut at mid height,
@@ -104,6 +110,27 @@ object per line (``t``: the script's seconds when the phase ended):
   profile      one more seq step under torch.profiler
   seq_knn      the seq step's two nearest-neighbour searches alone (the
                collision's and the skinning-weight transfer's), timed
+  parallel_seq the frame-parallel seq runner (parallel/frames.py) on a
+               process group of one (NCCL, file store under PAR_DIR),
+               PAR_FRAMES frames x PAR_ITERS iterations on the seq
+               template: each frame's parameters and losses against a
+               serial loop of make_train_step("seq") from the same shared
+               parameters with a fresh optimizer and the same generators
+               (bit for bit, or rel-L2 1e-6), the frames differ; wall
+               seconds, ms an iteration a frame, peak memory, launches
+  dp_step      make_dp_train_step of the init and the split stage at the
+               scene's width, DP_BATCH examples on that group: the update
+               against two loss_and_grads, their mean and one step of the
+               DP step's own optimizer (clip 1.0, unscaled lr_pos) within
+               rel-L2 1e-5; ms a DP step, peak memory
+  parallel_kernels  the kernels at the calls recorded on parallel_seq and
+               dp_step, as in cli_kernels; the rows' "parallel" entries
+  parallel_world2  the runner (2 frames x 2 iterations on the seq
+               template) and an init DP step (2 examples) on the full
+               scene in two spawned processes sharing the card (gloo)
+               against the same in this process (world 1), all with
+               PyTorch's deterministic algorithms: bit for bit or rel-L2
+               1e-6
   pbr          render_mesh(bsdf="pbr") on the scene's init mesh at 1080^2,
                the scene's 256^2 probe (scaled by a seeded field), 8 light
                samples: a warm-up whose kernel calls are recorded by call
@@ -168,6 +195,12 @@ object per line (``t``: the script's seconds when the phase ended):
                the UV rasterization and the texture lookups timed alone,
                the files; render_uv at 256^2 on the card equal to the
                CPU's (masks exact, kd / ks abs 1e-5)
+  cli_parallel the CLI with --stages seq --seq-parallel and the cli
+               phase's other arguments on a copy of its out dir (seq/
+               removed): every frame's delta npz with the serial run's
+               keys and offsets' shape, its ply with the serial run's
+               counts, the loss_log at frame * 100000 + it, the kernels
+               launched
   capture_export  the port's exporter (d3human_tpu_torch.scripts.
                export_reference_layout) writes the synthetic scene in the
                reference's capture layout at 1080^2, 4 frames, under
@@ -556,11 +589,74 @@ def compare_small_tick(cpu: dict, gpu: dict, stage: str) -> None:
 def phase_small(seed_steps: int) -> None:
     """The whole init, split and seq ticks and the pbr render, kernels on
     the card vs plain versions on the CPU, on one tiny scene with
-    identical parameters and random draws."""
+    identical parameters and random draws; the bfloat16 SDF MLP."""
     cpu, gpu = small_scenes(seed_steps)
     for stage in SMALL_PHASE:
         compare_small_tick(cpu, gpu, stage)
     phase_small_pbr(cpu, gpu)
+    phase_small_bf16(BF16_POINTS, "cuda")
+
+
+BF16_POINTS = 16384      # points of the small_bf16 check
+# rel-L2 of the bf16 MLP, card against CPU: 2^-9, half a bf16 ulp (the
+# other accumulation order rounds some hidden values to the next bf16)
+BF16_TOL = 2.0 ** -9
+
+
+def phase_small_bf16(n: int, device: str) -> dict:
+    """The SDF MLP at the field config's width (``field.use_bfloat16``:
+    bf16 products, float32 accumulation) on ``n`` seeded points on
+    ``device`` against the CPU: output, point gradient and a hidden
+    layer's weight gradient within BF16_TOL rel-L2 (a hidden value whose
+    float32 sum lies at a bf16 rounding tie may round the other way on
+    another accumulation order, which moves it by 2^-8 of itself), and at
+    least half the CPU's bf16-to-float32 distance from the float32 MLP;
+    ms of a forward + backward in bf16 and in float32 (CUDA events)."""
+    import torch
+
+    from d3human_tpu_torch.config import FieldConfig
+    from d3human_tpu_torch.models.fields import MLP
+
+    f = FieldConfig()
+    gen = torch.Generator().manual_seed(3)
+    nets = {bf: MLP(n_freq=f.n_freq, d_hidden=f.d_hidden,
+                    n_hidden=f.n_hidden, skip_in=f.skip_in, d_out=1,
+                    use_bfloat16=bf) for bf in (True, False)}
+    params = nets[True].init(gen, "cpu")
+    pts = torch.rand((n, 3), generator=gen) * 1.6 - 0.8
+
+    def prepared(dev, bf):
+        """fn() -> (output, point gradient, hidden weight gradient)."""
+        p = tree_map(lambda t: t.to(dev).requires_grad_(True), params)
+        x = pts.to(dev).requires_grad_(True)
+
+        def fn():
+            x.grad = p["layers"][2]["w"].grad = None
+            y = nets[bf].apply(p, x)
+            (y * y).sum().backward()
+            return y.detach(), x.grad, p["layers"][2]["w"].grad
+        return fn
+
+    got, want, f32 = (prepared(*a)() for a in ((device, True), ("cpu", True),
+                                               ("cpu", False)))
+    names = ("output", "point_grad", "hidden_w_grad")
+    err = {k: rel_l2(a, b) for k, a, b in zip(names, got, want)}
+    gap = {k: rel_l2(a, b) for k, a, b in zip(names, want, f32)}
+    off = {k: rel_l2(a, b) for k, a, b in zip(names, got, f32)}
+    for k in names:
+        # and the device's result is the bf16 one, not the float32 one
+        check(err[k] <= BF16_TOL and off[k] >= 0.5 * gap[k],
+              f"small_bf16: {k} rel-L2 {err[k]} to the CPU's bf16, "
+              f"{off[k]} to its float32 ({gap[k]} between those)")
+    out = dict(points=n, d_hidden=f.d_hidden, n_hidden=f.n_hidden,
+               tolerance=BF16_TOL, rel_l2=err, bf16_vs_f32=gap,
+               device_vs_f32=off)
+    if device == "cuda":
+        out["fwd_bwd_ms"] = {name: cuda_ms(prepared(device, bf))
+                             for name, bf in (("bf16", True),
+                                              ("f32", False))}
+    emit("small_bf16", **out)
+    return out
 
 
 def check_first_k(what: str, mask, k: int) -> dict:
@@ -1022,8 +1118,6 @@ def phase_step(sc: dict, stage: str, steps: int, phase: str = None) -> dict:
     reported as ``phase`` (default: the stage's step phase)."""
     import torch
 
-    from d3human_tpu_torch.ops import compaction
-
     phase, state_key = phase or STEP_PHASE[stage], STATE_KEY[stage]
     step_fn = stage_step_fn(sc, stage)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1049,18 +1143,7 @@ def phase_step(sc: dict, stage: str, steps: int, phase: str = None) -> dict:
         check_step_metrics(stage, scalars(mm), f"{phase} {i}")
     last = scalars(metrics[-1])
     calls = launches.pop("calls")
-    check(launches["coo_scatter_add"] > 0 and calls["coo_scatter_add"] > 0,
-          f"{phase}: the scatter kernel never launched")
-    check(launches["resolve_tiles_peel"] == 0,
-          f"{phase}: a training step launched the resolve with a floor")
-    for k, per_step in STEP_CALLS[stage].items():
-        check(calls[k] == per_step * steps,
-              f"{phase}: {k} called {calls[k]} times in {steps} steps, "
-              f"expected {per_step * steps}")
-    check(launches["first_k_indices"]
-          == compaction.LAUNCHES * calls["first_k_indices"]
-          and launches["resolve_tiles"] == calls["resolve_tiles"],
-          f"{phase}: launches {launches} for calls {calls}")
+    check_path_counts(phase, launches, calls, STEP_CALLS[stage], steps)
     out = dict(steps=steps, step_ms=step_ms,
                mean_ms=sum(step_ms) / steps, warmup_s=warm_s,
                launches_per_step={k: n / steps for k, n in launches.items()},
@@ -3178,6 +3261,605 @@ def phase_capture_data(scale: str, device: str, root: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- parallel
+
+PAR_FRAMES = 2           # frames of the parallel_seq phase
+PAR_ITERS = 3            # iterations a frame in parallel_seq
+PAR_SEED = 5             # the runner's seed (and the oracle's)
+DP_BATCH = 2             # examples of a DP step
+PAR_DIR = "d3human_tpu_torch/build/smoke_parallel"
+PAR_TOL = 1e-6           # rel-L2 where a result is not bit for bit
+DP_TOL = 1e-5            # the DP step's update against its serial oracle
+
+
+def init_world1(device: str, root: str) -> bool:
+    """A process group of one (NCCL for the card, gloo for the CPU) on a
+    file store under ``root``, unless a group is up; True if it made one."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return False
+    os.makedirs(root, exist_ok=True)
+    store = os.path.join(root, "store_world1")
+    if os.path.exists(store):
+        os.remove(store)
+    dist.init_process_group(
+        "nccl" if device == "cuda" else "gloo",
+        init_method="file://" + store, rank=0, world_size=1,
+        timeout=datetime.timedelta(minutes=10))
+    # NCCL builds its communicator at the first collective: here, not
+    # inside a timed phase
+    dist.all_reduce(torch.zeros(1, device=device))
+    sync(device)
+    return True
+
+
+def par_targets(sc: dict) -> list:
+    """One target a frame: the scene's view at frame_idx 0, 1, ..."""
+    return [dict(sc["target"], frame_idx=f) for f in range(PAR_FRAMES)]
+
+
+def no_warmup(cfg):
+    """``cfg`` with warmup_iter 0, so that a fresh optimizer's first step
+    moves the parameters."""
+    return dataclasses.replace(cfg, optim=dataclasses.replace(
+        cfg.optim, warmup_iter=0))
+
+
+def clone_tree(tree):
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms while active (warn only): the
+    CUDA accumulations whose float atomics make the sum's order vary
+    (``index_put_`` with accumulate in the gathers' backward,
+    ``index_add_``) run in a fixed order, so two runs of one computation
+    can agree bit for bit (cuBLAS needs CUBLAS_WORKSPACE_CONFIG, which
+    ``main`` sets). Yields a list that receives, on exit, the first line
+    of each warning about an op without a deterministic version."""
+    import warnings
+
+    import torch
+
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    seen = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield seen
+        finally:
+            torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+            seen.extend(sorted({str(w.message).split("\n")[0][:200]
+                                for w in caught
+                                if "deterministic" in str(w.message)}))
+
+
+def compare_trees(got, want) -> tuple:
+    """(bit for bit, the largest per-leaf rel-L2, that leaf) of two
+    parameter trees."""
+    import torch
+
+    from d3human_tpu_torch.train.optim import named_leaves
+
+    g, w = dict(named_leaves(got)), dict(named_leaves(want))
+    check(set(g) == set(w), "parameter trees differ in their leaves")
+    same, worst, where = True, 0.0, None
+    for k in w:
+        a, b = g[k].detach().cpu(), w[k].detach().cpu()
+        if not torch.equal(a, b):
+            same = False
+            if rel_l2(a, b) >= worst:
+                worst, where = rel_l2(a, b), k
+    return same, worst, where
+
+
+def merge_recorded(*inputs) -> dict:
+    """Kernel inputs recorded on several runs as one record: calls summed
+    by site, each site's biggest call kept."""
+    out = {}
+    for inp in inputs:
+        for kernel, sites in inp.items():
+            for site, s in sites.items():
+                o = out.setdefault(kernel, {}).get(site)
+                if o is None:
+                    out[kernel][site] = dict(s)
+                    continue
+                o["calls"] += s["calls"]
+                if s["size"] > o["size"]:
+                    o["size"], o["args"] = s["size"], s["args"]
+    return out
+
+
+def check_path_counts(phase: str, counts: dict, calls: dict,
+                      per_call: dict, n: int) -> None:
+    """On the card: first_k and the resolve called ``per_call[k] * n``
+    times, the scatter launched, no resolve with a floor."""
+    from d3human_tpu_torch.ops import compaction
+
+    check(counts["coo_scatter_add"] > 0, f"{phase}: the scatter never "
+          "launched")
+    check(counts["resolve_tiles_peel"] == 0,
+          f"{phase}: a training step launched the resolve with a floor")
+    for k, per in per_call.items():
+        check(calls[k] == per * n, f"{phase}: {k} called {calls[k]} times, "
+              f"expected {per * n}")
+    check(counts["first_k_indices"]
+          == compaction.LAUNCHES * calls["first_k_indices"]
+          and counts["resolve_tiles"] == calls["resolve_tiles"],
+          f"{phase}: launches {counts} for calls {calls}")
+
+
+def phase_parallel_seq(sc: dict, device: str = "cuda") -> dict:
+    """The frame-parallel seq runner (``make_parallel_seq_runner``) on a
+    process group of one, PAR_FRAMES frames x PAR_ITERS iterations of the
+    scene's seq template (no warm-up in the schedule): a timed run, kernel
+    counts reset just before and read just after, the calls recorded by
+    site; then, under ``deterministic()``, the runner again and a serial
+    loop of ``make_train_step("seq")`` a frame from the same shared
+    parameters with a fresh optimizer and the same generators: each
+    frame's parameters and losses bit for bit, or within PAR_TOL rel-L2
+    with the ops that have no deterministic version named. The frames
+    differ. Wall seconds, ms an iteration a frame, peak memory, launches
+    and calls, and how far the timed run lies from the deterministic one
+    (Adam's first steps divide each gradient by its own size, so the
+    atomics' rounding moves near-zero gradients' updates by up to the
+    learning rate)."""
+    import torch
+
+    from d3human_tpu_torch.parallel.frames import make_parallel_seq_runner
+    from d3human_tpu_torch.parallel.mesh import make_frame_mesh
+    from d3human_tpu_torch.train.optim import named_leaves
+    from d3human_tpu_torch.train.stages import iteration_generator
+    from d3human_tpu_torch.train.step import init_state, make_train_step
+
+    cfg = no_warmup(sc["seq_cfg"])
+    args = (sc["model"], sc["tex"], sc["perceptual"], sc["perc_params"])
+    targets = par_targets(sc)
+    shared = clone_tree(sc["params"])
+    mesh = make_frame_mesh(device=device)
+    launch, _ = make_parallel_seq_runner(
+        *args, sc["seq_template"], cfg, PAR_FRAMES, PAR_ITERS, mesh=mesh,
+        raster_opts=sc["raster_opts"])
+    sync(device)
+    reset_peak(device)
+    reset_counts()
+    with recording_kernel_inputs(tag=lambda: "parallel_seq") as inputs:
+        (timed_frames, timed_totals), wall = timed(device, lambda: launch(
+            shared, targets, PAR_SEED))
+    counts = read_counts()
+    peak = peak_gib(device)
+    calls = counts.pop("calls")
+    if device == "cuda":
+        check_path_counts("parallel_seq", counts, calls, STEP_CALLS["seq"],
+                          PAR_FRAMES * PAR_ITERS)
+    check(bool(torch.isfinite(timed_totals).all()),
+          "parallel_seq: a loss is not finite")
+    a, b = (dict(named_leaves(timed_frames[f])) for f in (0, 1))
+    moved = [k for k in a if "nonrigid" in k and not torch.equal(a[k], b[k])]
+    check(len(moved) > 0, "parallel_seq: the frames' parameters are equal")
+    step_fn = make_train_step("seq", *args, cfg, sc["raster_opts"],
+                              template=sc["seq_template"])
+    same, worst, where, totals_same = True, 0.0, None, True
+    with deterministic() as nondet:
+        per_frame, totals = launch(shared, targets, PAR_SEED)
+        for f in range(PAR_FRAMES):
+            state = init_state("seq", clone_tree(shared), cfg)
+            want = []
+            for it in range(PAR_ITERS):
+                state, m = step_fn(state, targets[f], iteration_generator(
+                    PAR_SEED, f * 100000 + it, device))
+                want.append(float(m["total"]))
+            s, w, k = compare_trees(per_frame[f], state.params)
+            if w >= worst:
+                worst, where = w, k
+            same = same and s
+            got = totals[f].tolist()
+            totals_same = totals_same and got == want
+            worst = max(worst, max(abs(x - y) / abs(y)
+                                   for x, y in zip(got, want)))
+    check(same and totals_same or (worst <= PAR_TOL and nondet),
+          f"parallel_seq: the runner against the serial steps: rel "
+          f"{worst} ({where}); ops without a deterministic version: "
+          f"{nondet}")
+    _, timed_vs_det, timed_where = compare_trees(timed_frames[0],
+                                                 per_frame[0])
+    out = dict(frames=PAR_FRAMES, iters=PAR_ITERS,
+               faces=int(sc["seq_template"].f.shape[0]),
+               world=mesh.world, group=mesh.group is not None,
+               wall_s=wall, ms_per_iter_per_frame=wall * 1e3 / (
+                   PAR_FRAMES * PAR_ITERS),
+               peak_mem_gib=peak, bitwise=same and totals_same,
+               max_rel_err=worst, worst_leaf=where,
+               nondeterministic_ops=nondet,
+               timed_vs_deterministic=dict(rel_l2=timed_vs_det,
+                                           leaf=timed_where),
+               totals=timed_totals.tolist(), frames_differ_in=len(moved),
+               launches=counts, calls=calls)
+    emit("parallel_seq", **out)
+    return dict(out, inputs=inputs)
+
+
+def phase_dp_step(sc: dict, device: str = "cuda") -> dict:
+    """``make_dp_train_step`` of the init and the split stage on a process
+    group of one at the scene's width, DP_BATCH examples (frame_idx 0, 1
+    of the scene's view, each with its own injected draws) at the stage
+    state's step, no warm-up in the schedule: a timed DP step a stage,
+    kernel counts reset before the first and read after the second, the
+    calls recorded by site; then, under ``deterministic()``, the DP step
+    again and the serial oracle (a ``loss_and_grads`` an example, their
+    mean, one step of the DP step's own optimizer: geometry clip 1.0,
+    unscaled lr_pos): the update within DP_TOL rel-L2 a leaf. ms a DP step
+    (host clock between two device synchronisations), peak memory, the
+    metrics stacked [DP_BATCH]."""
+    import torch
+
+    from d3human_tpu_torch.parallel.frames import make_dp_train_step
+    from d3human_tpu_torch.parallel.mesh import make_data_mesh
+    from d3human_tpu_torch.train.optim import named_leaves
+    from d3human_tpu_torch.train.step import (
+        TrainState, _post_step, loss_and_grads,
+    )
+
+    args = (sc["model"], sc["tex"], sc["perceptual"], sc["perc_params"])
+    targets = par_targets(sc)[:DP_BATCH]
+    mesh = make_data_mesh(device=device)
+    report, recorded = {}, []
+    reset_counts()
+    for stage in ("init", "split"):
+        cfg = no_warmup(sc["cfg"])
+        it = sc[STATE_KEY[stage]].step
+        dp_step, opt_factory, _, _ = make_dp_train_step(
+            stage, *args, cfg, raster_opts=sc["raster_opts"], mesh=mesh)
+        draws = [tick_draws(cfg, stage, seed=20 + i)
+                 for i in range(DP_BATCH)]
+        before = clone_tree(sc["params"])
+
+        def fresh():
+            params = clone_tree(before)
+            return TrainState(params=params, opt=opt_factory(params),
+                              step=it)
+
+        state = fresh()
+        reset_peak(device)
+        c0 = read_counts()
+        with recording_kernel_inputs(tag=lambda: f"dp {stage}") as inputs:
+            (state, metrics), dp_s = timed(device, lambda: dp_step(
+                state, targets, draws))
+        c1 = read_counts()
+        recorded.append(inputs)
+        peak = peak_gib(device)
+        tot = metrics["total"]
+        check(tuple(tot.shape) == (DP_BATCH,)
+              and bool(torch.isfinite(tot).all()),
+              f"dp_step {stage}: totals {tot}")
+        with deterministic() as nondet:
+            state, _ = dp_step(fresh(), targets, draws)
+            oracle = clone_tree(before)
+            opt = opt_factory(oracle)
+            grads = [loss_and_grads(stage, *args, oracle, targets[i], it,
+                                    cfg, opt.trainable_paths(),
+                                    sc["raster_opts"], draws=draws[i])[1]
+                     for i in range(DP_BATCH)]
+            mean = {}
+            for p in grads[0]:
+                gs = [g[p] for g in grads if g[p] is not None]
+                mean[p] = sum(gs) / DP_BATCH if gs else None
+            opt.step(oracle, mean)
+            _post_step(oracle, sc["model"])
+        b0 = dict(named_leaves(before))
+        got = {k: v - b0[k] for k, v in named_leaves(state.params)
+               if v.is_floating_point()}
+        want = {k: v - b0[k] for k, v in named_leaves(oracle)
+                if v.is_floating_point()}
+        moved = [k for k in want if float(want[k].abs().max()) > 0]
+        check(len(moved) > 0, f"dp_step {stage}: the oracle moved nothing")
+        worst, where = max((rel_l2(got[k], want[k]), k) for k in moved)
+        where = where if worst > 0 else None
+        same = all(torch.equal(got[k], want[k]) for k in want)
+        check(worst <= DP_TOL, f"dp_step {stage}: update rel-L2 {worst} "
+              f"({where}); ops without a deterministic version: {nondet}")
+        report[stage] = dict(step=it, ms=dp_s * 1e3,
+                             peak_mem_gib=peak, bitwise=same,
+                             update_rel_l2=worst, worst_leaf=where,
+                             nondeterministic_ops=nondet,
+                             leaves_moved=len(moved), totals=tot.tolist(),
+                             launches={k: c1[k] - c0[k] for k in c1
+                                       if k != "calls"},
+                             calls={k: c1["calls"][k] - c0["calls"][k]
+                                    for k in c1["calls"]})
+    # the two timed steps' counts alone (the deterministic reruns and the
+    # oracles launch too)
+    counts, calls = ({k: sum(report[st][what][k] for st in report)
+                      for k in report["init"][what]}
+                     for what in ("launches", "calls"))
+    if device == "cuda":
+        check_path_counts("dp_step", counts, calls, {
+            k: STEP_CALLS["init"][k] + STEP_CALLS["split"][k]
+            for k in STEP_CALLS["init"]}, DP_BATCH)
+    out = dict(batch=DP_BATCH, world=mesh.world, tolerance=DP_TOL,
+               launches=counts, calls=calls, **report)
+    emit("dp_step", **out)
+    return dict(out, inputs=merge_recorded(*recorded))
+
+
+def world2_scene(device: str) -> dict:
+    """The tiny scene with its seq template on ``device``, with the
+    parameters fitted on the CPU (as ``small_scenes``)."""
+    cpu = build_scene("tiny", "cpu", 50)
+    if device == "cpu":
+        sc = cpu
+    else:
+        sc = build_scene("tiny", device, 0)
+        sc["params"] = tree_map(lambda t: t.to(device), cpu["params"])
+    add_seq(sc, "tiny")
+    return sc
+
+
+def parallel_job(sc: dict) -> dict:
+    """The runner (PAR_FRAMES frames x 2 iterations from PAR_SEED) and a
+    DP step of the init stage (one example a frame target, injected draws)
+    on the scene, as ``parallel_jobs`` takes them."""
+    cfg = no_warmup(sc["cfg"])
+    return dict(
+        common={k: sc[k] for k in ("model", "tex", "perceptual",
+                                   "perc_params", "params", "raster_opts")},
+        runner=dict(cfg=no_warmup(sc["seq_cfg"]), template=sc["seq_template"],
+                    targets=par_targets(sc), seed=PAR_SEED, n_iters=2),
+        dp=dict(stage="init", cfg=cfg, targets=par_targets(sc),
+                draws=[tick_draws(cfg, "init", seed=30 + i)
+                       for i in range(PAR_FRAMES)], step=0))
+
+
+def parallel_jobs(job: dict) -> dict:
+    """The parts of ``job`` in this process, on its process group if it
+    has one: ``runner`` (the frame-parallel seq runner), ``dp`` (one DP
+    step from a fresh optimizer), ``driver`` (``run_seq_stage_parallel``
+    into its ``save_path``); a part's model, texture, perceptual loss,
+    parameters and raster options are its own or ``common``'s. Returns the runner's per-frame parameters
+    and totals and the DP step's parameters and metrics, on the CPU (a
+    frame this rank does not hold is None)."""
+    import torch
+
+    from d3human_tpu_torch.parallel.frames import (
+        make_dp_train_step, make_parallel_seq_runner,
+    )
+    from d3human_tpu_torch.train.stages import run_seq_stage_parallel
+    from d3human_tpu_torch.train.step import TrainState
+
+    def part(name):
+        d = {**job.get("common", {}), **job[name]}
+        return d, (d["model"], d["tex"], d["perceptual"], d["perc_params"])
+
+    def cpu(tree):
+        return None if tree is None else tree_map(
+            lambda t: t.detach().cpu(), tree)
+
+    out = {}
+    if "runner" in job:
+        r, args = part("runner")
+        launch, _ = make_parallel_seq_runner(
+            *args, r["template"], r["cfg"], len(r["targets"]), r["n_iters"],
+            raster_opts=r["raster_opts"])
+        per_frame, totals = launch(r["params"], r["targets"], r["seed"])
+        out["runner"] = ([cpu(p) for p in per_frame], totals)
+    if "dp" in job:
+        d, args = part("dp")
+        dp_step, opt_factory, _, _ = make_dp_train_step(
+            d["stage"], *args, d["cfg"], raster_opts=d["raster_opts"])
+        params = clone_tree(d["params"])
+        state = TrainState(params=params, opt=opt_factory(params),
+                           step=d["step"])
+        state, metrics = dp_step(state, d["targets"], d["draws"])
+        out["dp"] = (cpu(state.params), {k: v.cpu()
+                                         for k, v in metrics.items()})
+    if "driver" in job:
+        d, args = part("driver")
+        run_seq_stage_parallel(
+            d["params"], d["template"], d["targets"].__getitem__,
+            len(d["targets"]), d["cfg"], d["save_path"], d["seed"], *args,
+            raster_opts=d["raster_opts"])
+    return out
+
+
+def parallel_worker(rank: int, world: int, store: str, job_path: str,
+                    out_dir: str) -> None:
+    """One rank of ``spawn_parallel``: a gloo group on the file store, the
+    job's parts under ``deterministic()``, its result in
+    ``rank<r>.pt``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method="file://" + store,
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(minutes=5))
+    try:
+        job = torch.load(job_path, weights_only=False)
+        with deterministic():
+            out = parallel_jobs(job)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_parallel(world: int, job: dict, root: str,
+                   timeout_s: float = 600.0) -> list:
+    """``parallel_jobs(job)`` in ``world`` spawned processes (gloo, a file
+    store under ``root``, so that concurrent runs cannot collide); a rank
+    that raises, or a run past ``timeout_s``, raises here, and every
+    process is gone on return. Returns each rank's result."""
+    import shutil
+
+    import torch
+    import torch.multiprocessing as mp
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    job_path = os.path.join(root, "job.pt")
+    torch.save(job, job_path)
+    ctx = mp.start_processes(
+        parallel_worker, args=(world, os.path.join(root, "store"), job_path,
+                               root),
+        nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout_s
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"spawn_parallel: {world} ranks still "
+                                   f"running after {timeout_s} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    return [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def phase_parallel_world2(sc: dict, device: str, root: str,
+                          scale: str) -> dict:
+    """The runner and the DP step of ``parallel_job`` on the scene (of
+    ``scale``) in this process (world 1) and in two spawned processes
+    sharing the device (gloo; one frame and one example a rank), all
+    under ``deterministic()``: rank 0's per-frame parameters and totals,
+    and every rank's DP parameters and metrics, against world 1, bit for
+    bit or within PAR_TOL rel-L2."""
+    import torch
+
+    job = parallel_job(sc)
+    t0 = time.perf_counter()
+    with deterministic():
+        w1 = parallel_jobs(job)
+    w1_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = spawn_parallel(2, job, root)
+    w2_s = time.perf_counter() - t0
+    same, worst = True, 0.0
+    for f, want in enumerate(w1["runner"][0]):
+        s, w, _ = compare_trees(ranks[0]["runner"][0][f], want)
+        same, worst = same and s, max(worst, w)
+    for r in ranks:
+        check(torch.equal(r["runner"][1], ranks[0]["runner"][1]),
+              "parallel_world2: the ranks' totals differ")
+        s, w, _ = compare_trees(r["dp"][0], w1["dp"][0])
+        same, worst = same and s, max(worst, w)
+        for k, v in w1["dp"][1].items():
+            s = torch.equal(r["dp"][1][k], v)
+            same = same and s
+            if not s:
+                worst = max(worst, rel_l2(r["dp"][1][k], v))
+    t_same = torch.equal(ranks[0]["runner"][1], w1["runner"][1])
+    if not t_same:
+        worst = max(worst, rel_l2(ranks[0]["runner"][1], w1["runner"][1]))
+    check(ranks[1]["runner"][0][0] is None,
+          "parallel_world2: rank 1 holds frame 0")
+    check(same and t_same or worst <= PAR_TOL,
+          f"parallel_world2: world 2 against world 1: rel {worst}")
+    out = dict(scale=scale, device=device, world=2, backend="gloo",
+               frames=PAR_FRAMES, iters=2, dp_batch=PAR_FRAMES,
+               bitwise=same and t_same, max_rel_err=worst,
+               world1_s=w1_s, world2_s=w2_s)
+    emit("parallel_world2", **out)
+    return out
+
+
+CLI_PAR_DIR = "d3human_tpu_torch/build/smoke_cli_parallel"
+
+
+def phase_cli_parallel(scale: str, device: str, cli_root: str,
+                       root: str) -> dict:
+    """The port's CLI with ``--stages seq --seq-parallel`` and the cli
+    phase's other arguments, in this process, on a copy of that phase's
+    out dir whose seq/ is removed first: [done]; every frame's
+    delta/<f>.npz with the serial run's keys, its offsets of the serial
+    run's shape, fine_all_<f>.ply with the serial run's vertex and face
+    counts (the template's), the loss_log at frame * 100000 + it every
+    log_interval, all finite; the kernels launched."""
+    import shutil
+
+    import numpy as np
+
+    from d3human_tpu_torch.config import load_config
+    from d3human_tpu_torch.utils import io as mesh_io
+
+    s = CLI_SCALES[scale]
+    cfg_path = os.path.join(cli_root, "config.json")
+    cfg = load_config(cfg_path)
+    shutil.rmtree(root, ignore_errors=True)
+    out_dir = os.path.join(root, "out")
+    shutil.copytree(os.path.join(cli_root, "out"), out_dir)
+    seq = os.path.join(out_dir, "seq")
+    n_seq = min(s["frames"], cfg.stages.seq_max_frames)
+    serial = {}
+    for f in range(n_seq):
+        with np.load(os.path.join(seq, "delta", f"{f}.npz")) as z:
+            keys = sorted(z.files)
+            shape = z["delta"].shape
+        v, fc = mesh_io.read_ply(os.path.join(seq, f"fine_all_{f}.ply"))
+        serial[f] = (keys, shape, len(v), len(fc))
+    shutil.rmtree(seq)
+    argv = ["--config", cfg_path, "--out-dir", out_dir, "--synthetic",
+            "--synthetic-frames", str(s["frames"]), "--stages", "seq",
+            "--seq-parallel", "--iters-scale", str(s["iters_scale"]),
+            "--device", device]
+    import d3human_tpu_torch.train_d3h as cli
+
+    sync(device)
+    reset_peak(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    text = run_cli(cli, argv, s["parity_samples"])
+    sync(device)
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    calls = counts.pop("calls")
+    lines = text.split("\n")
+    check("[done]" in lines, "cli_parallel: no [done] line")
+    check(any(ln.startswith("[seq-par] done") for ln in lines),
+          "cli_parallel: no [seq-par] done line")
+    iters = max(2, int(cfg.stages.seq_iters_first * s["iters_scale"]))
+    for f, (keys, shape, nv, nf) in serial.items():
+        with np.load(os.path.join(seq, "delta", f"{f}.npz")) as z:
+            check(sorted(z.files) == keys, f"cli_parallel: delta/{f}.npz "
+                  f"holds {sorted(z.files)}, the serial run's {keys}")
+            check(z["delta"].shape == shape
+                  and bool(np.isfinite(z["delta"]).all()),
+                  f"cli_parallel: delta/{f}.npz {z['delta'].shape}")
+        v, fc = mesh_io.read_ply(os.path.join(seq, f"fine_all_{f}.ply"))
+        check((len(v), len(fc)) == (nv, nf),
+              f"cli_parallel: fine_all_{f}.ply {len(v)} verts {len(fc)} "
+              f"faces, the serial run's {nv} / {nf}")
+    logged = _read_jsonl(os.path.join(seq, "loss_log", "scalars.jsonl"))
+    want = [f * 100000 + it for f in range(n_seq)
+            for it in range(0, iters, cfg.stages.log_interval)]
+    check([ln["step"] for ln in logged] == want,
+          f"cli_parallel: loss_log steps {[ln['step'] for ln in logged]}")
+    check(all(math.isfinite(ln["total"]) for ln in logged),
+          "cli_parallel: a logged loss is not finite")
+    for k in ("first_k_indices", "coo_scatter_add", "resolve_tiles"):
+        check(device != "cuda" or counts[k] > 0,
+              f"cli_parallel: {k} never launched ({counts})")
+    with open(os.path.join(out_dir, "PARITY.json")) as fh:
+        parity = json.load(fh)["stages"].get("seq", {})
+    out = dict(scale=scale, argv=argv, seconds=seconds, frames=n_seq,
+               iters=iters, peak_mem_gib=peak_gib(device),
+               files=2 * n_seq + 1, parity=parity, launches=counts,
+               calls=calls)
+    emit("cli_parallel", **out)
+    return out
+
+
 def _tensors(x):
     import torch
 
@@ -3194,6 +3876,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    # before the first cuBLAS handle: deterministic() needs it, and the
+    # processes that spawn_parallel starts inherit it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import d3human_tpu_torch  # noqa: F401  (fails outside the checkout)
     from d3human_tpu_torch.ops import cuda_lib
 
@@ -3246,6 +3931,15 @@ def main() -> int:
     paths["seq_step"] = phase_step(sc, "seq", SEQ_STEPS)
     phase_profile("seq step", lambda: one_more_step(sc, "seq"))
     phase_seq_knn(sc)
+    here = os.path.dirname(os.path.abspath(__file__))
+    own_group = init_world1("cuda", os.path.join(here, PAR_DIR))
+    par = phase_parallel_seq(sc)
+    dp = phase_dp_step(sc)
+    phase_path_kernels(rows, merge_recorded(par.pop("inputs"),
+                                            dp.pop("inputs")), "parallel")
+    paths["parallel_seq"], paths["dp"] = par, dp
+    phase_parallel_world2(sc, "cuda", os.path.join(here, PAR_DIR, "world2"),
+                          "full")
     pbr = phase_pbr(sc, "cuda")
     phase_path_kernels(rows, pbr.pop("inputs"), "pbr")
     paths["pbr"] = pbr
@@ -3266,6 +3960,9 @@ def main() -> int:
     phase_bake("full", "cuda", os.path.join(
         os.path.dirname(os.path.abspath(__file__)), CLI_DIR))
     del cli
+    paths["cli_parallel"] = phase_cli_parallel(
+        "full", "cuda", os.path.join(here, CLI_DIR),
+        os.path.join(here, CLI_PAR_DIR))
     capture_root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 CAPTURE_DIR)
     phase_capture_export("full", "cuda", capture_root)
@@ -3282,8 +3979,9 @@ def main() -> int:
         # each half, the surgery, SURGERY_SEQ_STEPS seq steps on its
         # template, SEQ_STEPS seq steps, the pbr renders, MOBILENET_STEPS
         # init and split steps with the MobileNetV2 backbone, the API-only
-        # modules, the CLI's first run on the synthetic scene and its run
-        # on the exported capture); first_k
+        # modules, the frame-parallel seq runner, the DP steps, the CLI's
+        # first run on the synthetic scene, its --seq-parallel run and its
+        # run on the exported capture); first_k
         # counts its count and write launches, the scatter each launch of
         # its two sum kernels, and their calls are the calls of the wrapper
         for what in ("launches", "calls"):
@@ -3291,6 +3989,10 @@ def main() -> int:
                                     for k, v in paths.items()}
             r[what] = sum(r[what + "_by_path"].values())
             check(r[what] > 0, f"{r['name']}: no {what} on the driven paths")
+            for path in ("parallel_seq", "dp"):
+                n = r[what + "_by_path"][path]
+                check(n == 0 if r["name"] == "resolve_tiles_peel" else n > 0,
+                      f"{r['name']}: {n} {what} on the {path} path")
     emit("paths", init_step={"steps": INIT_STEPS},
          split_step={"steps": SPLIT_STEPS},
          validate={"renders": 2, "layers": VAL_LAYERS},
@@ -3301,10 +4003,17 @@ def main() -> int:
          mobilenet={"init_steps": MOBILENET_STEPS,
                     "split_steps": MOBILENET_STEPS},
          aux={"modules": 6},
+         parallel_seq={"frames": PAR_FRAMES, "iters": PAR_ITERS},
+         dp={"stages": ["init", "split"], "batch": DP_BATCH},
          cli={"runs": 1, "scale": "full"},
+         cli_parallel={"runs": 1, "scale": "full"},
          capture={"runs": 1, "scale": "full"},
          launches={k: v["launches"] for k, v in paths.items()},
          calls={k: v["calls"] for k, v in paths.items()})
+    if own_group:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,10 +4,8 @@ renders, the stage drivers and the CLI read.
 
 Field names and defaults are the JAX package's, so a JAX ``Config``
 converts field by field (``from_jax_config``) and every JSON config loads
-into both packages alike. Left out: the device-mesh section
-(``parallel``; the frame-parallel seq stage is not ported) and
-``field.use_bfloat16``; a JSON key the tree does not hold is ignored, as
-the JAX loader ignores unknown keys. The render's tile fields and
+into both packages alike; a JSON key the tree does not hold is ignored,
+as the JAX loader ignores unknown keys. The render's tile fields and
 ``backend`` are kept for that reason only: the port's rasterizer takes
 its options from the caller.
 """
@@ -33,6 +31,9 @@ class FieldConfig:
     skip_in: Tuple[int, ...] = (3,)
     pose_code_dim: int = 136     # fix_code's width
     cond_dim: int = 64           # per-frame latents cond / render_cond
+    # the input and hidden layers' products from bfloat16-rounded inputs
+    # and weights, accumulated in float32 (the output layer stays float32)
+    use_bfloat16: bool = False
 
 
 @dataclass(frozen=True)
@@ -175,6 +176,17 @@ class StageConfig:
 
 
 @dataclass(frozen=True)
+class ParallelConfig:
+    """The process layout of ``parallel/``: the frame-parallel seq stage
+    shards its frames over ``frames_axis``, the data-parallel step its
+    batch over ``data_axis``; one process (rank) a device."""
+
+    data_axis: str = "data"
+    frames_axis: str = "frames"
+    n_frame_shards: int = 0          # 0: the world size
+
+
+@dataclass(frozen=True)
 class Config:
     field: FieldConfig = dfield(default_factory=FieldConfig)
     geometry: GeometryConfig = dfield(default_factory=GeometryConfig)
@@ -183,6 +195,7 @@ class Config:
     loss: LossConfig = dfield(default_factory=LossConfig)
     optim: OptimConfig = dfield(default_factory=OptimConfig)
     stages: StageConfig = dfield(default_factory=StageConfig)
+    parallel: ParallelConfig = dfield(default_factory=ParallelConfig)
     out_dir: str = "out"
     data_dir: str = "data"
     gender: str = "neutral"

@@ -7,6 +7,8 @@ the same tree of tensors. Every part keeps its layout: MLP weights are
 ``[d_in, d_out]`` on both sides, the material is ``encoder.table`` (one
 ``[S, F]`` table per level) and ``net[i].w``, the light its ``base`` probe.
 A tree without material or light converts to one without.
+``stacked_params_from_jax`` takes frame f's tree out of the JAX
+frame-parallel runner's output, whose every leaf has a leading frame axis.
 ``texture_from_jax_config`` builds the port's ``MLPTexture3D`` from the JAX
 package's texture config and material range; ``perceptual_from_jax`` turns
 ConvPerceptual's HWIO filters into PyTorch's OIHW; ``template_from_jax``
@@ -38,6 +40,22 @@ def params_from_jax(tree: dict, device="cuda") -> dict:
     return {k: _to_torch(tree[k], device)
             for k in ("geometry", "pose", "material", "light")
             if tree.get(k) is not None}
+
+
+def _frame(tree, f: int):
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _frame(v, f) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_frame(v, f) for v in tree]
+    return np.asarray(tree)[f]
+
+
+def stacked_params_from_jax(tree: dict, frame: int, device="cuda") -> dict:
+    """``params_from_jax`` of frame ``frame`` of a params tree whose leaves
+    are stacked over a leading frame axis."""
+    return params_from_jax(_frame(tree, frame), device)
 
 
 def texture_from_jax_config(jtex_cfg, min_max, device="cuda"):

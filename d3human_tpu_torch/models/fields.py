@@ -4,7 +4,10 @@ and the pose-conditioned nonrigid ``DeformMLP``.
 Counterpart of ``d3human_tpu/models/fields.py``. Parameters are a plain
 dict ``{"layers": [{"w": [d_in, d_out], "b": [d_out]}, ...]}`` in the JAX
 package's layout (``x @ w + b``), so converted JAX weights compute the same
-function.
+function. With ``use_bfloat16`` the input and hidden layers multiply
+bfloat16-rounded inputs and weights with float32 accumulation and a
+float32 bias; the output layer stays float32 (the SDF's sign decides the
+mesh's topology).
 """
 
 from __future__ import annotations
@@ -52,6 +55,40 @@ def _linear_init(gen: torch.Generator, d_in: int, d_out: int,
     return {"w": u(d_in, d_out), "b": u(d_out)}
 
 
+class _Bf16Product(torch.autograd.Function):
+    """x @ w of bfloat16 x [N, K] and w [K, M], accumulated and returned in
+    float32 (``jnp.dot(..., preferred_element_type=float32)``): on the card
+    a bfloat16 GEMM with float32 output; on the CPU the float32 product of
+    the same operands, in which each product of two bfloat16 values is
+    exact. The gradients of x and w are float32 products rounded to
+    bfloat16, as the transpose of JAX's product gives them."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        if x.is_cuda:
+            return torch.mm(x, w, out_dtype=torch.float32)
+        return x.float() @ w.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = (g @ w.float().t()).to(torch.bfloat16)
+        if ctx.needs_input_grad[1]:
+            gw = (x.float().t() @ g).to(torch.bfloat16)
+        return gx, gw
+
+
+def _linear(lin: Params, h: torch.Tensor, bf16: bool) -> torch.Tensor:
+    if not bf16:
+        return h @ lin["w"] + lin["b"]
+    y = _Bf16Product.apply(h.reshape(-1, h.shape[-1]).to(torch.bfloat16),
+                           lin["w"].to(torch.bfloat16))
+    return y.reshape(*h.shape[:-1], y.shape[-1]) + lin["b"]
+
+
 class MLP:
     """Softplus MLP over positional-encoded 3-D points: input layer,
     ``n_hidden`` hidden layers (layer i takes [h, PE] when i in skip_in),
@@ -60,12 +97,14 @@ class MLP:
     concatenate the encoding alone."""
 
     def __init__(self, n_freq=6, d_hidden=256, d_out=1, n_hidden=6,
-                 skip_in: Sequence[int] = (3,), d_extra_in: int = 0):
+                 skip_in: Sequence[int] = (3,), use_bfloat16: bool = False,
+                 d_extra_in: int = 0):
         self.n_freq = n_freq
         self.d_hidden = d_hidden
         self.d_out = d_out
         self.n_hidden = n_hidden
         self.skip_in = tuple(skip_in)
+        self.use_bfloat16 = use_bfloat16
         self.d_extra_in = d_extra_in
         self.d_emb = posenc_dim(3, n_freq)
 
@@ -83,13 +122,13 @@ class MLP:
         emb = posenc(x, self.n_freq)
         h = emb if extra is None else torch.cat([extra, emb], dim=-1)
         layers = params["layers"]
-        h = softplus100(h @ layers[0]["w"] + layers[0]["b"])
+        bf16 = self.use_bfloat16
+        h = softplus100(_linear(layers[0], h, bf16))
         for i in range(self.n_hidden):
             if i in self.skip_in:
                 h = torch.cat([h, emb], dim=-1)
-            lin = layers[i + 1]
-            h = softplus100(h @ lin["w"] + lin["b"])
-        return h @ layers[-1]["w"] + layers[-1]["b"]
+            h = softplus100(_linear(layers[i + 1], h, bf16))
+        return _linear(layers[-1], h, False)
 
 
 class DeformMLP(MLP):
@@ -97,10 +136,11 @@ class DeformMLP(MLP):
     the code broadcast over the points."""
 
     def __init__(self, n_freq=8, d_hidden=256, d_out=3, n_hidden=6,
-                 skip_in: Sequence[int] = (3,), pose_dim=136):
+                 skip_in: Sequence[int] = (3,), pose_dim=136,
+                 use_bfloat16: bool = False):
         super().__init__(n_freq=n_freq, d_hidden=d_hidden, d_out=d_out,
                          n_hidden=n_hidden, skip_in=skip_in,
-                         d_extra_in=pose_dim)
+                         use_bfloat16=use_bfloat16, d_extra_in=pose_dim)
         self.pose_dim = pose_dim
 
     def apply(self, params: Params, x: torch.Tensor,

@@ -77,10 +77,12 @@ class GeometryModel:
         self.canon = canon
         f = cfg.field
         self.sdf_mlp = MLP(n_freq=f.n_freq, d_hidden=f.d_hidden,
-                           n_hidden=f.n_hidden, skip_in=f.skip_in, d_out=1)
+                           n_hidden=f.n_hidden, skip_in=f.skip_in,
+                           use_bfloat16=f.use_bfloat16, d_out=1)
         self.nonrigid = DeformMLP(n_freq=f.n_freq_deform, d_hidden=f.d_hidden,
                                   n_hidden=f.n_hidden, skip_in=f.skip_in,
-                                  pose_dim=f.pose_code_dim, d_out=3)
+                                  pose_dim=f.pose_code_dim, d_out=3,
+                                  use_bfloat16=f.use_bfloat16)
         self.max_verts = cfg.geometry.max_verts
         self.max_tets = cfg.geometry.max_tets
         self.max_displacement = cfg.geometry.max_displacement

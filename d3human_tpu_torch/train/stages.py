@@ -1,6 +1,7 @@
 """Stage drivers (counterpart of ``d3human_tpu/train/stages.py``): the
 loop of the init, split and split_smpl stages (``run_stage``), the serial
-per-frame seq loop (``run_seq_stage``), and the stage artifacts
+per-frame seq loop (``run_seq_stage``), the frame-parallel seq stage
+(``run_seq_stage_parallel``), and the stage artifacts
 (``export_stage_meshes``, the visible-triangle sets). Checkpoints, scalar
 logs, validation strips and meshes land under the stage's directory in
 the JAX package's file layout.
@@ -18,10 +19,12 @@ from __future__ import annotations
 
 import json
 import os
+import time
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from d3human_tpu_torch.config import Config
 from d3human_tpu_torch.models.geometry import GeometryModel, SeqTemplate
@@ -290,3 +293,74 @@ def run_seq_stage(state: TrainState, step_fn, template: SeqTemplate,
                 os.remove(op)
     logger.close()
     return state
+
+
+def run_seq_stage_parallel(params: Dict, template: SeqTemplate,
+                           frame_targets: Callable[[int], Dict],
+                           n_frames: int, cfg: Config, save_path: str,
+                           seed: int, model: GeometryModel, tex_module,
+                           perceptual, perc_params, n_devices: int = 0,
+                           raster_opts: Optional[dict] = None):
+    """The frame-parallel seq stage (counterpart of the JAX package's
+    ``run_seq_stage_parallel``): every frame optimizes ``seq_iters_first``
+    iterations from its own copy of ``params`` (``parallel/frames.py``),
+    each rank its contiguous block of the frames, with no warm start from
+    the frame before and no state saved mid-run (rerun on interruption).
+    The frame axis is padded to a multiple of the world size; a padded
+    slot re-optimizes the last frame and is dropped. Each rank writes its
+    own real frames' ``delta/<f>.npz`` and ``fine_all_<f>.ply`` in the
+    serial driver's format, rank 0 the ``loss_log`` at ``frame * 100000 +
+    it`` every ``log_interval``; all ranks meet at a barrier at the end.
+    Returns the runner's per-frame parameters."""
+    # parallel/frames.py builds on this module's iteration_generator
+    from d3human_tpu_torch.parallel.frames import make_parallel_seq_runner
+    from d3human_tpu_torch.parallel.mesh import make_frame_mesh, shard_leading
+
+    os.makedirs(os.path.join(save_path, "delta"), exist_ok=True)
+    n_frames = min(n_frames, cfg.stages.seq_max_frames)
+    n_iters = cfg.stages.seq_iters_first
+    mesh = make_frame_mesh(n_devices or cfg.parallel.n_frame_shards,
+                           axis=cfg.parallel.frames_axis,
+                           device=model.grid.verts.device)
+    n_pad = -(-n_frames // mesh.world) * mesh.world
+    block = shard_leading(mesh, n_pad)
+    targets = [frame_targets(min(f, n_frames - 1)) if f in block else None
+               for f in range(n_pad)]
+    launch, mesh = make_parallel_seq_runner(
+        model, tex_module, perceptual, perc_params, template, cfg,
+        n_frames=n_pad, n_iters=n_iters, mesh=mesh, raster_opts=raster_opts)
+    if mesh.rank == 0:
+        print(f"[seq-par] {n_frames} frames (+{n_pad - n_frames} pad) x "
+              f"{n_iters} iters on {mesh.world} device(s)", flush=True)
+    t0 = time.time()
+    per_frame, totals = launch(params, targets, seed)
+    wall = time.time() - t0
+    if mesh.rank == 0:
+        print(f"[seq-par] done in {wall:.1f}s ({wall / n_iters * 1000:.1f} "
+              "ms/iter wall across all frames)", flush=True)
+        logger = ScalarLogger(os.path.join(save_path, "loss_log"))
+        for frame in range(n_frames):
+            for it in range(0, n_iters, cfg.stages.log_interval):
+                logger.log(frame * 100000 + it,
+                           {"total": float(totals[frame, it])})
+        logger.close()
+    visible_fn = _make_visible_triangles_fn(cfg)
+    for frame in block:
+        if frame >= n_frames:
+            continue
+        p = per_frame[frame]
+        target = targets[frame]
+        with torch.no_grad():
+            posed, delta = model.seq_deformed(
+                p["geometry"], template, p["pose"], int(target["frame_idx"]))
+        np.savez(os.path.join(save_path, "delta", f"{frame}.npz"),
+                 delta=delta.cpu().numpy(),
+                 visible_triangles=visible_fn(posed, template.f,
+                                              target["mvp"]))
+        mesh_io.write_ply(os.path.join(save_path, f"fine_all_{frame}.ply"),
+                          posed, template.f)
+        print(f"[seq-par] frame={frame} final total="
+              f"{float(totals[frame, -1]):.4f}", flush=True)
+    if mesh.group is not None:
+        dist.barrier(group=mesh.cpu_group)
+    return per_frame

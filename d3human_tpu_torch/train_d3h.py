@@ -19,8 +19,12 @@ its newest state and reuses the host steps' finished outputs.
 A capture's frames are composited over a random background, as the JAX
 driver does; the background of an iteration is drawn from a generator
 seeded by (seed, stage, iteration), so a resumed run replays it (the JAX
-driver draws from one running stream). Refused: ``--seq-parallel``
-(ROADMAP.md Queue 1 item 18). The JAX driver's ``precompile_async`` has no
+driver draws from one running stream). ``--seq-parallel`` runs the seq
+stage frame-parallel (``train/stages.py:run_seq_stage_parallel``): with one
+process after the stages before it, or under ``torchrun --nproc_per_node
+N`` with ``--stages seq`` only, each rank a device and its block of the
+frames; without ``split`` in the stage list, the parameters are the split
+stage's newest state on disk. The JAX driver's ``precompile_async`` has no
 counterpart: PyTorch compiles nothing ahead of a step. The pretraining
 caches and the lattice cache live under the out dir (``cache/``,
 ``tet_grid_*.npz``), so a fresh out dir starts from nothing.
@@ -38,6 +42,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from d3human_tpu_torch.config import load_config
 from d3human_tpu_torch.data.dataset import (
@@ -50,6 +55,7 @@ from d3human_tpu_torch.models.smplx.deformer import SMPLXDeformer
 from d3human_tpu_torch.models.smplx.model import load_smplx_npz
 from d3human_tpu_torch.models.texture import MLPTexture3D
 from d3human_tpu_torch.ops.tet_grid import make_tet_grid
+from d3human_tpu_torch.parallel.mesh import maybe_distributed_init, rank_device
 from d3human_tpu_torch.pipeline.components import process_close_hole
 from d3human_tpu_torch.pipeline.template import (
     build_seq_template, merge_body_cloth,
@@ -61,7 +67,7 @@ from d3human_tpu_torch.train.checkpoint import (
 )
 from d3human_tpu_torch.train.stages import (
     export_stage_meshes, fold_in, iteration_generator, run_seq_stage,
-    run_stage,
+    run_seq_stage_parallel, run_stage,
 )
 from d3human_tpu_torch.train.step import init_state, make_train_step
 from d3human_tpu_torch.utils import io as mesh_io
@@ -91,8 +97,11 @@ def parse_args(argv: Optional[List[str]] = None):
                    help="scale all stage iteration counts: "
                         "max(2, int(n * scale))")
     p.add_argument("--seq-parallel", action="store_true",
-                   help="refused: the frame-parallel seq stage is not "
-                        "ported")
+                   help="optimize every seq frame independently from the "
+                        "shared post-split state (no warm start; each "
+                        "frame the first frame's iteration budget), the "
+                        "frames split over the processes of torchrun "
+                        "(--stages seq only with more than one)")
     p.add_argument("--resume", action="store_true",
                    help="resume each stage from its newest state (params, "
                         "optimizer moments, step) and reuse finished host "
@@ -138,12 +147,17 @@ def load_capture(args, train_res, dev):
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
-    if args.seq_parallel:
+    stages = args.stages.split(",")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.seq_parallel and world > 1 and stages != ["seq"]:
+        # every rank would run the stages before seq in full, and wait at
+        # the seq stage's barrier for the slowest
         raise SystemExit(
-            "d3human_tpu_torch.train_d3h: --seq-parallel is not ported "
-            "(ROADMAP.md Queue 1 item 18); run without it for the serial "
-            "seq stage")
-    dev = torch.device(args.device)
+            f"d3human_tpu_torch.train_d3h: --seq-parallel over {world} "
+            f"processes takes --stages seq only (got {args.stages!r}): run "
+            "the stages before it in one process first, into the same "
+            "--out-dir")
+    dev = rank_device(args.device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise SystemExit(
@@ -152,7 +166,20 @@ def main(argv: Optional[List[str]] = None) -> int:
         # float32 throughout, as the JAX package computes at "highest"
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.set_device(dev)
     cfg = load_config(args.config, overrides={"out_dir": args.out_dir})
+    split_ckp = None
+    if args.seq_parallel and "split" not in stages:
+        split_ckp = latest_checkpoint(os.path.join(cfg.out_dir,
+                                                   "split_cloth0", "ckp"))
+        if split_ckp is None:
+            raise SystemExit(
+                "d3human_tpu_torch.train_d3h: --seq-parallel without the "
+                "split stage needs its state in "
+                f"{os.path.join(cfg.out_dir, 'split_cloth0', 'ckp')} from "
+                "an earlier run")
+    own_group = args.seq_parallel and maybe_distributed_init(dev)
+    lead = not dist.is_initialized() or dist.get_rank() == 0
 
     # ---- data and body model
     scene = None
@@ -196,7 +223,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         return lambda it: get_frame(order(it), stage, it)
 
     os.makedirs(cfg.out_dir, exist_ok=True)
-    stages = args.stages.split(",")
 
     def s(n):
         return max(2, int(n * args.iters_scale))
@@ -259,21 +285,25 @@ def main(argv: Optional[List[str]] = None) -> int:
     run_seed = fold_in(cfg.seed, 3)
     gparams = model.init_params(generator(0), n_images=n_images)
 
-    print("[pretrain] SDF -> template body SDF", flush=True)
     pcache, ncache = pretrain_cache_paths(
         cfg, cache_dir=os.path.join(cfg.out_dir, "cache"), crop_box=crop_box)
-    gparams, ploss = cached_sdf_pretrain(
-        model, gparams, cfg.stages.sdf_mlp_pretrain_steps, pcache)
-    print(f"[pretrain] done, loss="
-          f"{'cached' if ploss is None else f'{ploss:.2e}'}", flush=True)
-    if os.path.exists(ncache):
-        print(f"[pretrain] cached nonrigid <- {ncache}", flush=True)
-        gparams = dict(gparams)
-        gparams["nonrigid"] = load_params(ncache, gparams["nonrigid"])
+    if split_ckp is not None:
+        print(f"[pretrain] skipped: the parameters come from {split_ckp}",
+              flush=True)
     else:
-        gparams = model.pretrain_nonrigid_zero(
-            gparams, cfg.stages.sdf_deform_pretrain_steps)
-        save_params(ncache, gparams["nonrigid"])
+        print("[pretrain] SDF -> template body SDF", flush=True)
+        gparams, ploss = cached_sdf_pretrain(
+            model, gparams, cfg.stages.sdf_mlp_pretrain_steps, pcache)
+        print(f"[pretrain] done, loss="
+              f"{'cached' if ploss is None else f'{ploss:.2e}'}", flush=True)
+        if os.path.exists(ncache):
+            print(f"[pretrain] cached nonrigid <- {ncache}", flush=True)
+            gparams = dict(gparams)
+            gparams["nonrigid"] = load_params(ncache, gparams["nonrigid"])
+        else:
+            gparams = model.pretrain_nonrigid_zero(
+                gparams, cfg.stages.sdf_deform_pretrain_steps)
+            save_params(ncache, gparams["nonrigid"])
 
     r = cfg.render
     tex = MLPTexture3D(cfg.texture, (list(r.kd_min[:3]) + list(r.ks_min),
@@ -288,6 +318,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         "light": create_trainable_env(generator(2), r.probe_res,
                                       device=dev),
     }
+    if split_ckp is not None:
+        params = load_state(split_ckp, init_state("split", params,
+                                                  cfg)).params
 
     def stage_state(stage):
         return (init_state(stage, params, cfg),
@@ -379,7 +412,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     if "seq" in stages:
         template = build_seq_template(process_dir, device=dev)
-        if scene is not None:
+        if scene is not None and lead:
             # the merge's error floor: the unoptimised template posed to
             # frame 0 against the ground-truth surface
             t0 = get_frame(0, 3, 0)
@@ -405,20 +438,28 @@ def main(argv: Optional[List[str]] = None) -> int:
             cfg_seq = dataclasses.replace(cfg, stages=dataclasses.replace(
                 cfg.stages, seq_iters_first=s(cfg.stages.seq_iters_first),
                 seq_iters_rest=s(cfg.stages.seq_iters_rest)))
-        step_fn = make_train_step("seq", model, tex, perceptual,
-                                  perc_params, cfg, template=template)
         seq_dir = os.path.join(cfg.out_dir, "seq")
-        state = run_seq_stage(init_state("seq", params, cfg), step_fn,
-                              template, lambda f: get_frame(f, 3, f),
-                              n_frames=n_images,
-                              cfg=cfg_seq, save_path=seq_dir,
-                              seed=fold_in(run_seed, 3), model=model,
-                              tex_module=tex)
-        params, state = state.params, None
+        if args.seq_parallel:
+            run_seq_stage_parallel(
+                params, template, lambda f: get_frame(f, 3, f),
+                n_frames=n_images, cfg=cfg_seq, save_path=seq_dir,
+                seed=fold_in(run_seed, 3), model=model, tex_module=tex,
+                perceptual=perceptual, perc_params=perc_params)
+        else:
+            step_fn = make_train_step("seq", model, tex, perceptual,
+                                      perc_params, cfg, template=template)
+            state = run_seq_stage(init_state("seq", params, cfg), step_fn,
+                                  template, lambda f: get_frame(f, 3, f),
+                                  n_frames=n_images,
+                                  cfg=cfg_seq, save_path=seq_dir,
+                                  seed=fold_in(run_seed, 3), model=model,
+                                  tex_module=tex)
+            params, state = state.params, None
         # per-frame Chamfer of the fitted seq meshes to the posed ground
         # truth (fine_all_*.ply)
         chs = []
-        for fn in sorted(os.listdir(seq_dir)) if scene is not None else ():
+        for fn in (sorted(os.listdir(seq_dir)) if scene is not None and lead
+                   else ()):
             m = re.match(r"fine_all_(\d+)\.ply", fn)
             if not m:
                 continue
@@ -435,6 +476,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             write_parity()
 
     print("[done]", flush=True)
+    if own_group:
+        dist.destroy_process_group()
     return 0
 
 

@@ -353,17 +353,55 @@ def test_chip_smoke_bake_rehearsal(cli_run, tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    """A missing capture layout (the file named), --seq-parallel, a card
-    that is not there; none of them writes the out dir."""
+    """A missing capture layout (the file named), a card that is not
+    there; none of them writes the out dir."""
     import d3human_tpu_torch.train_d3h as cli
 
     out = ["--out-dir", str(tmp_path / "o")]
     with pytest.raises(SystemExit, match="nowhere/f3c/key.list"):
         cli.main(out + ["--trainset_path", str(tmp_path / "nowhere"),
                         "--folder_name", "f3c", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="item 18"):
-        cli.main(out + ["--synthetic", "--seq-parallel", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
         cli.main(out + ["--synthetic"])
     assert not os.path.exists(tmp_path / "o")
+
+
+def test_chip_smoke_cli_parallel_rehearsal(cli_run, tmp_path):
+    """chip_smoke.py's cli_parallel phase at its CPU-sized scale: the CLI
+    with --stages seq --seq-parallel on a copy of the cli run's out dir
+    writes every frame's delta npz with the serial run's keys and offsets'
+    shape, its ply with the serial run's counts and the loss_log (checked
+    inside the phase); the seq Chamfer lands in PARITY.json."""
+    import chip_smoke
+
+    out = chip_smoke.phase_cli_parallel(
+        "tiny", "cpu", os.path.dirname(cli_run["out_dir"]),
+        str(tmp_path / "par"))
+    assert out["frames"] == 2 and out["iters"] == 2
+    assert out["parity"]["n_frames"] == 2
+    assert np.isfinite(out["parity"]["chamfer_per_frame_max"])
+
+
+def test_cli_seq_parallel_refusals(tmp_path, monkeypatch):
+    """Over more than one process (WORLD_SIZE faked as 2), --seq-parallel
+    takes --stages seq only; without the split stage it needs the split
+    state of an earlier run. Neither writes the out dir nor starts a
+    process group."""
+    import torch.distributed as dist
+
+    import d3human_tpu_torch.train_d3h as cli
+
+    out = ["--out-dir", str(tmp_path / "o"), "--synthetic", "--seq-parallel",
+           "--device", "cpu"]
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("RANK", "0")
+    for stages in ("split_smpl,init,split,seq", "split,seq", "init"):
+        with pytest.raises(SystemExit, match="takes --stages seq only"):
+            cli.main(out + ["--stages", stages])
+    monkeypatch.delenv("WORLD_SIZE")
+    monkeypatch.delenv("RANK")
+    with pytest.raises(SystemExit, match="split_cloth0/ckp"):
+        cli.main(out + ["--stages", "seq"])
+    assert not os.path.exists(tmp_path / "o")
+    assert not dist.is_initialized()

@@ -60,6 +60,14 @@ def test_configs_load_as_in_jax(path):
             assert got == want, f.name
     assert T.from_jax_config(j) == t_as_jax
     assert t.out_dir == "somewhere" and t.gender == "female"
+    # the port's tree has every field of the JAX one, section by section
+    names = {f.name for f in dataclasses.fields(j)}
+    assert {f.name for f in dataclasses.fields(t)} == names
+    for name in names:
+        if dataclasses.is_dataclass(getattr(j, name)):
+            assert ({f.name for f in dataclasses.fields(getattr(t, name))}
+                    == {f.name for f in dataclasses.fields(getattr(j, name))}
+                    ), name
 
 
 # ---------------------------------------------------------------- files

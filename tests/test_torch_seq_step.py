@@ -178,6 +178,51 @@ def test_deform_mlp_matches_jax():
             == [tuple(lay["w"].shape) for lay in full_p["layers"]])
 
 
+@pytest.mark.parametrize("deform", [False, True])
+def test_bf16_mlps_match_jax(deform):
+    """MLP and DeformMLP with use_bfloat16 (bf16 products, float32
+    accumulation, float32 bias and output layer) against JAX's on the
+    CPU, weights scaled x3 so the hidden layers saturate less: output and
+    point gradient within rel-L2 1e-3 and within a tenth of JAX's own
+    bf16-to-float32 distance. Not 1e-5: a hidden value whose float32 sum
+    lies at a bf16 rounding tie rounds the other way in the other
+    package's accumulation order, which moves it by 2^-8 of itself."""
+    from d3human_tpu.models.fields import MLP as JaxMLP
+    from d3human_tpu.models.fields import DeformMLP as JaxDeformMLP
+    from d3human_tpu_torch.models.fields import MLP, DeformMLP
+
+    rng = np.random.default_rng(4)
+    kw = dict(n_freq=6, d_hidden=64, n_hidden=4, skip_in=(2,))
+    jcls, pcls = (JaxDeformMLP, DeformMLP) if deform else (JaxMLP, MLP)
+    if deform:
+        kw.update(n_freq=8, pose_dim=136)
+    params = jax.tree.map(lambda a: a * 3.0, jcls(**kw).init(
+        jax.random.PRNGKey(1)))
+    x = rng.uniform(-0.8, 0.8, (513, 3)).astype(np.float32)
+    extra = ((0.1 * rng.normal(size=(1, 1, 136))).astype(np.float32),) \
+        if deform else ()
+
+    def jax_run(bf16):
+        m = jcls(use_bfloat16=bf16, **kw)
+
+        def f(xx):
+            y = m.apply(params, xx, *map(jnp.asarray, extra))
+            return (y * y).sum(), y
+
+        (_, y), g = jax.jit(jax.value_and_grad(f, has_aux=True))(
+            jnp.asarray(x))
+        return np.asarray(y), np.asarray(g)
+
+    want, want32 = jax_run(True), jax_run(False)
+    xt = torch.as_tensor(x).requires_grad_(True)
+    y = pcls(use_bfloat16=True, **kw).apply(
+        _to_torch(params), xt, *map(torch.as_tensor, extra))
+    (y * y).sum().backward()
+    for got, w, w32 in zip((y.detach().numpy(), xt.grad.numpy()), want,
+                           want32):
+        assert _rel_l2(got, w) <= min(1e-3, 0.1 * _rel_l2(w, w32))
+
+
 def test_smoothness_and_collision_losses_match_jax(subdivided):
     """laplacian_uniform_loss, normal_consistency_loss and collision_loss
     on a perturbed template (8,832 faces, so the collision search walks
@@ -512,6 +557,45 @@ def test_chip_smoke_seq_rehearsal():
                 template=sc["seq_template"])))
     assert outs[0] == outs[1]
     assert all(math.isfinite(v) for v in outs[0].values())
+
+
+def test_chip_smoke_small_bf16_rehearsal():
+    """chip_smoke.py's small_bf16 check with the CPU as the device: the
+    comparison is then exact, and the bf16 MLP stands apart from the
+    float32 one."""
+    import chip_smoke
+
+    out = chip_smoke.phase_small_bf16(1024, "cpu")
+    assert set(out["rel_l2"].values()) == {0.0}
+    assert min(out["bf16_vs_f32"].values()) > 1e-4
+
+
+def test_chip_smoke_parallel_rehearsal(tmp_path):
+    """chip_smoke.py's parallel_seq and dp_step phases on the tiny scene on
+    a gloo group of one (the runner bit for bit its serial loops, the DP
+    update within 1e-5 of its oracle, checked inside), and
+    parallel_world2 (world 2 bit for bit world 1 on the CPU)."""
+    import torch.distributed as dist
+
+    import chip_smoke
+
+    sc = chip_smoke.build_scene("tiny", "cpu", seed_steps=50)
+    chip_smoke.add_seq(sc, "tiny")
+    assert chip_smoke.init_world1("cpu", str(tmp_path / "group"))
+    try:
+        par = chip_smoke.phase_parallel_seq(sc, "cpu")
+        dp = chip_smoke.phase_dp_step(sc, "cpu")
+    finally:
+        dist.destroy_process_group()
+    assert par["group"] and par["bitwise"] and par["frames_differ_in"] > 0
+    assert dp["init"]["bitwise"] and dp["split"]["bitwise"]
+    inputs = chip_smoke.merge_recorded(par["inputs"], dp["inputs"])
+    assert set(inputs) == {"first_k_indices", "coo_scatter_add",
+                           "resolve_tiles_indexed"}
+    w2 = chip_smoke.phase_parallel_world2(chip_smoke.world2_scene("cpu"),
+                                          "cpu", str(tmp_path / "w2"),
+                                          "tiny")
+    assert w2["bitwise"]
 
 
 def test_chip_smoke_field_setup_and_surgery_rehearsal(tmp_path, monkeypatch):

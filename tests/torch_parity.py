@@ -112,10 +112,15 @@ def port_small(j, device="cpu"):
                 target=target)
 
 
+def _key(key):
+    """``PRNGKey(key)`` of an int; a key array as it is."""
+    return jax.random.PRNGKey(key) if isinstance(key, int) else key
+
+
 def eik_draws(n, key=KEY):
     """The uniform draws ``tick_init`` makes with ``PRNGKey(key)``
     (losses.py:160 split, mesh_ops.py:165-171)."""
-    _, k_sample = jax.random.split(jax.random.PRNGKey(key))
+    _, k_sample = jax.random.split(_key(key))
     k1, k2 = jax.random.split(k_sample)
     u = np.array(jax.random.uniform(k1, (n,)))
     uv = np.array(jax.random.uniform(k2, (n, 2)))
@@ -144,7 +149,7 @@ def compact_draw_shapes(cfg):
 
 def init_draws(cfg, key=KEY):
     """All draws of ``tick_init`` with ``PRNGKey(key)`` (losses.py:160)."""
-    k_render, _ = jax.random.split(jax.random.PRNGKey(key))
+    k_render, _ = jax.random.split(_key(key))
     return {"eik": eik_draws(cfg.geometry.n_eikonal_samples, key),
             "render": render_draws(k_render, *compact_draw_shapes(cfg))}
 
@@ -156,7 +161,7 @@ def split_draws(cfg, key=KEY):
     H, W = cfg.render.train_res
     crop = cfg.loss.perceptual_crop
     out = {}
-    halves = jax.random.split(jax.random.PRNGKey(key))
+    halves = jax.random.split(_key(key))
     for name, k in zip(("cloth", "body"), halves):
         k_render, k_sample, k_crop = jax.random.split(k, 3)
         k1, k2 = jax.random.split(k_sample)
