@@ -48,7 +48,11 @@ object per line (``t``: the script's seconds when the phase ended):
                build_seq("full"): default field, texture, render (1080^2,
                max_covered_frac 0.5) and loss configs, raster_opts None
   kernels      each kernel against its plain version on the scene's own
-               inputs: first_k exactly equal at its five shapes, its two
+               inputs (the scan: the eikonal sampling's area CDF of the
+               scene's extraction and the light probe's column CDFs,
+               within 1e-6 of the largest prefix of torch.cumsum and bit
+               for bit across two calls): first_k exactly equal at its five
+               shapes, its two
                launches the only kernels of its calls (no library scan, no
                copy or cast) and its eager wrapper faster than
                torch.nonzero + pad; the scatter within rel 1e-5 /
@@ -107,6 +111,12 @@ object per line (``t``: the script's seconds when the phase ended):
   seq_step     the same for SEQ_STEPS seq training steps: first_k exactly
                3 calls, the resolve 1 per step, n_cov > 0, the offsets'
                loss > 0
+  determinism  DET_STEPS init, split and seq steps from copies of the
+               scene's parameters, twice in PyTorch's default mode with the
+               same generators and once under deterministic(): every
+               parameter, Adam moment and loss bit for bit across the
+               three, no op warned; one validation half twice, every buffer
+               bit for bit; step ms in both modes
   profile      one more seq step under torch.profiler
   seq_knn      the seq step's two nearest-neighbour searches alone (the
                collision's and the skinning-weight transfer's), timed
@@ -116,7 +126,8 @@ object per line (``t``: the script's seconds when the phase ended):
                template: each frame's parameters and losses against a
                serial loop of make_train_step("seq") from the same shared
                parameters with a fresh optimizer and the same generators
-               (bit for bit, or rel-L2 1e-6), the frames differ; wall
+               (bit for bit), the timed run (default mode) bit for bit the
+               runner's run under deterministic(), the frames differ; wall
                seconds, ms an iteration a frame, peak memory, launches
   dp_step      make_dp_train_step of the init and the split stage at the
                scene's width, DP_BATCH examples on that group: the update
@@ -188,6 +199,19 @@ object per line (``t``: the script's seconds when the phase ended):
                binning (the seq stage's on the seq template), each held
                to its plain version as in surgery_kernels; reported under
                "cli" in each row
+  cli_cut      the cli phase's command again into CLI_CUT_DIR, cut as the
+               split's second step starts (CutRun from the instrumented
+               step counter), then with --resume: every stage's final
+               checkpoint leaf, every seq delta npz and fine_all ply and
+               every PARITY.json number bit for bit the cli run's
+  scorers      the port's scorers on the cli run's out dir: eval_parity
+               with --n-views 4 --n-frames 4 (every stage's entry, the
+               union's IoUs and the ceilings in (0, 1], the halves' IoUs in
+               [0, 1], PSNR and Chamfers finite), then
+               score_seq_partial (its Chamfers within rel 1e-6 of the cli
+               run's own seq entry) and on a copy of the seq meshes less the
+               last frame's (n_frames 3, the partial marker); seconds of
+               each, the kernels' launches (path "scorers")
   bake         the port's bake entry point (d3human_tpu_torch.scripts.
                bake_texture) on the cli run's init checkpoint and
                watertight mesh at 2048^2, --atlas lscm and --atlas grid:
@@ -710,6 +734,42 @@ def check_first_k(what: str, mask, k: int) -> dict:
         library_ms=library_ms)
 
 
+SCAN_TOL = 1e-6          # the scan against torch.cumsum, of the total
+
+
+def check_scan(what: str, x) -> dict:
+    """The fixed-order scan at one shape: within SCAN_TOL of the largest
+    prefix against ``torch.cumsum`` (its plain version, and the library
+    call), bit for bit across two calls, two launches a call; its times
+    and bound (each entry read once and written once, one addition
+    each)."""
+    import torch
+
+    from d3human_tpu_torch.ops import scan
+
+    fn = scan.inclusive_scan
+    counts0 = (fn.calls, fn.launches)
+    got = fn(x)
+    check((fn.calls - counts0[0], fn.launches - counts0[1])
+          == (1, scan.LAUNCHES),
+          f"scan {what}: {fn.launches - counts0[1]} launches counted for "
+          "one call")
+    want = scan.inclusive_scan_plain(x)
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max().clamp_min(1e-30))
+    check(err <= SCAN_TOL * scale, f"scan {what}: {err} from torch.cumsum "
+          f"(largest prefix {scale})")
+    check(torch.equal(fn(x), got), f"scan {what}: two calls differ")
+    n = x.numel()
+    b, by = bound_ms(8 * n, n)
+    return dict(call=what, shape=tuple(x.shape), n=n, bound_ms=b,
+                bound_by=by, launches_per_call=scan.LAUNCHES,
+                max_abs_err=err, rel_err=err / scale, bitwise_repeat=True,
+                ms=cuda_ms(lambda: fn(x)), device_ms=graph_ms(lambda: fn(x)),
+                plain_ms=cuda_ms(lambda: scan.inclusive_scan_plain(x)),
+                library_ms=cuda_ms(lambda: torch.cumsum(x, -1)))
+
+
 def check_scatter(what: str, idx, live, C: int, rows_out: int, srt: bool,
                   gen, faster: bool = True) -> dict:
     """The scatter at one shape on random rows (zero where ``live`` is
@@ -1016,6 +1076,35 @@ def phase_kernels(sc: dict) -> list:
                          f"N={c['N']} C={c['C']} out={c['out_rows']}"))
                           for c in sc_seq}))
 
+    # ---- the fixed-order scan: the eikonal sampling's area CDF of the
+    # scene's extraction, and the light probe's column CDFs (256 rows)
+    from d3human_tpu_torch.ops import mesh_ops, scan
+    from d3human_tpu_torch.render.light import create_trainable_env
+
+    with torch.no_grad():
+        fn_raw = mesh_ops.face_normals(meshes.verts_posed, faces,
+                                       normalize=False)
+        area = torch.where(fvalid, 0.5 * torch.sqrt(torch.clamp_min(
+            (fn_raw * fn_raw).sum(-1), 1e-20)), 0.0)
+    probe = create_trainable_env(torch.Generator().manual_seed(4),
+                                 cfg.render.probe_res, scale=1.0,
+                                 device=dev)["base"].amax(-1)
+    sn = [check_scan("eikonal area cdf", area),
+          check_scan("light probe column cdfs", probe)]
+    emit("kernel_scan", tolerance=f"{SCAN_TOL} of the largest prefix",
+         tile=scan.TILE, calls=sn)
+    rows.append(dict(name="inclusive_scan", route="cuda",
+                     source="d3human_tpu_torch/csrc/scan.cu",
+                     replaces="d3human_tpu/ops/mesh_ops.py:168 (jnp.cumsum;"
+                              " port-only, no Pallas kernel)",
+                     shape=f"n={sn[0]['n']}", max_abs_err=sn[0]["max_abs_err"],
+                     ms=sn[0]["ms"], plain_ms=sn[0]["plain_ms"],
+                     bound_ms=sn[0]["bound_ms"], bound_by=sn[0]["bound_by"],
+                     library_ms=sn[0]["library_ms"],
+                     device_ms=sn[0]["device_ms"],
+                     probe=dict(kernel_summary(sn[1]), shape=(
+                         f"{sn[1]['shape'][0]} rows x {sn[1]['shape'][1]}"))))
+
     # ---- tile resolve on the scene's own binning: exact keys
     emit("bin_faces", **binning_stats(binned, v_clip, faces, fvalid, res))
     got, rs = check_resolve(binned, faces.shape[0])
@@ -1056,7 +1145,7 @@ def phase_kernels(sc: dict) -> list:
 
 
 def reset_counts() -> None:
-    from d3human_tpu_torch.ops import compaction, raster_resolve, scatter
+    from d3human_tpu_torch.ops import compaction, raster_resolve, scan, scatter
 
     compaction.first_k_indices.launches = 0
     compaction.first_k_indices.calls = 0
@@ -1064,32 +1153,40 @@ def reset_counts() -> None:
     scatter.coo_scatter_add.calls = 0
     raster_resolve.resolve_tiles.launches = 0
     raster_resolve.resolve_tiles.floor_launches = 0
+    scan.inclusive_scan.launches = 0
+    scan.inclusive_scan.calls = 0
 
 
 def read_counts() -> dict:
     """Kernel launches since ``reset_counts``, by the kernel table's names:
     the resolve's launches with a floor count as ``resolve_tiles_peel``.
     ``calls`` are calls of the wrappers; they differ from the launches for
-    first_k (a count and a write launch per call) and the scatter (two sum
-    kernels per call, one for a single tile)."""
-    from d3human_tpu_torch.ops import compaction, raster_resolve, scatter
+    first_k (a count and a write launch per call), the scatter (two sum
+    kernels per call, one for a single tile) and the scan (two a call)."""
+    from d3human_tpu_torch.ops import compaction, raster_resolve, scan, scatter
 
     rt = raster_resolve.resolve_tiles
     n = {"first_k_indices": compaction.first_k_indices.launches,
          "coo_scatter_add": scatter.coo_scatter_add.launches,
          "resolve_tiles": rt.launches - rt.floor_launches,
-         "resolve_tiles_peel": rt.floor_launches}
+         "resolve_tiles_peel": rt.floor_launches,
+         "inclusive_scan": scan.inclusive_scan.launches}
     n["calls"] = dict(n, first_k_indices=compaction.first_k_indices.calls,
-                      coo_scatter_add=scatter.coo_scatter_add.calls)
+                      coo_scatter_add=scatter.coo_scatter_add.calls,
+                      inclusive_scan=scan.inclusive_scan.calls)
     return n
 
 
 # calls per step the stage's code path must make (first_k: crossing edges
 # and valid tets once, then per render covered pixels + AA pairs x, y; the
-# resolve: one launch a call)
-STEP_CALLS = {"init": {"first_k_indices": 5, "resolve_tiles": 1},
-              "split": {"first_k_indices": 8, "resolve_tiles": 2},
-              "seq": {"first_k_indices": 3, "resolve_tiles": 1}}
+# resolve: one launch a call; the scan: the eikonal sampling's area CDF of
+# each extraction)
+STEP_CALLS = {"init": {"first_k_indices": 5, "resolve_tiles": 1,
+                       "inclusive_scan": 1},
+              "split": {"first_k_indices": 8, "resolve_tiles": 2,
+                        "inclusive_scan": 2},
+              "seq": {"first_k_indices": 3, "resolve_tiles": 1,
+                      "inclusive_scan": 0}}
 
 
 def stage_step_fn(sc: dict, stage: str):
@@ -2469,15 +2566,21 @@ class _Tee:
         return "".join(self.lines)
 
 
+class CutRun(Exception):
+    """Raised by ``instrumented_cli(stop_at=n)`` as the run enters its
+    training step number n (counted from 0 over all stages)."""
+
+
 @contextlib.contextmanager
-def instrumented_cli(device: str):
+def instrumented_cli(device: str, stop_at: int = None):
     """The CLI module with its stage drivers, its step builder and its
     data wrapped: per stage the seconds, the peak memory, the kernel
     counts, every step's and every target's time (the synthetic ground
     truth's render or the capture's ``frame_target``, without the
     background that the CLI composites after it) on the device's clock
     (CUDA events on the card) and on the host's, every capture decode's
-    host time, and the number of steps.
+    host time, and the number of steps. With ``stop_at`` the run is cut
+    (``CutRun``) as it enters its training step number ``stop_at``.
     Yields (module, record); the wrappers are removed on exit."""
     import torch
 
@@ -2506,6 +2609,8 @@ def instrumented_cli(device: str):
 
     def timing(fn, key, count=False):
         def run(*args, **kw):
+            if count and rec["steps"] == stop_at:
+                raise CutRun(f"cut at step {stop_at}")
             h0, t0 = time.perf_counter(), clock()
             out = fn(*args, **kw)
             r = stage_rec()
@@ -2598,26 +2703,15 @@ def _read_jsonl(path: str) -> list:
         return [json.loads(line) for line in fh if line.strip()]
 
 
-def phase_cli(scale: str, device: str, root: str,
-              capture: str = None) -> dict:
-    """The port's CLI in this process, ``main(argv)`` with ``--stages
-    split_smpl,init,split,seq --device <device>`` on a copy of the scale's
-    config with its cuts, into a fresh out dir under ``root``: on the
-    synthetic scene (``--synthetic``, phase ``cli``), then once more with
-    ``--resume``, which must run no step, reuse the host surgery's outputs
-    and keep PARITY.json's entries; or, with ``capture`` (the root of a
-    layout that ``phase_capture_export`` wrote), on that capture (phase
-    ``capture_cli``). Returns what it emits (the first run's kernel
-    launches and calls among it), the out dir and the first run's kernel
-    inputs by call site (``recording_kernel_inputs``)."""
+def cli_command(scale: str, device: str, root: str, capture: str = None):
+    """(argv, config, cuts) of the CLI phase's command: a fresh ``root``
+    holding a copy of the scale's config with its cuts, the out dir
+    ``root/out``, four stages on the synthetic scene or on ``capture``."""
     import shutil
 
     from d3human_tpu_torch.config import load_config
-    from d3human_tpu_torch.utils import io as mesh_io
 
     s = CLI_SCALES[scale]
-    name = "cli" if capture is None else "capture_cli"
-    cuda = device == "cuda"
     here = os.path.dirname(os.path.abspath(__file__))
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
@@ -2634,13 +2728,34 @@ def phase_cli(scale: str, device: str, root: str,
     cfg, src_cfg = load_config(cfg_path), load_config(src_path)
     cuts = {f"{sec}.{k}": [getattr(getattr(c, sec), k)
                            for c in (src_cfg, cfg)] for sec, k in cuts}
-    out_dir = os.path.join(root, "out")
     data = (["--synthetic", "--synthetic-frames", str(s["frames"])]
             if capture is None else
             ["--trainset_path", capture, "--folder_name", CAPTURE_FOLDER])
-    argv = ["--config", cfg_path, "--out-dir", out_dir, *data, "--stages",
-            "split_smpl,init,split,seq", "--iters-scale",
+    argv = ["--config", cfg_path, "--out-dir", os.path.join(root, "out"),
+            *data, "--stages", "split_smpl,init,split,seq", "--iters-scale",
             str(s["iters_scale"]), "--device", device]
+    return argv, cfg, cuts
+
+
+def phase_cli(scale: str, device: str, root: str,
+              capture: str = None) -> dict:
+    """The port's CLI in this process, ``main(argv)`` with ``--stages
+    split_smpl,init,split,seq --device <device>`` on a copy of the scale's
+    config with its cuts, into a fresh out dir under ``root``: on the
+    synthetic scene (``--synthetic``, phase ``cli``), then once more with
+    ``--resume``, which must run no step, reuse the host surgery's outputs
+    and keep PARITY.json's entries; or, with ``capture`` (the root of a
+    layout that ``phase_capture_export`` wrote), on that capture (phase
+    ``capture_cli``). Returns what it emits (the first run's kernel
+    launches and calls among it), the out dir and the first run's kernel
+    inputs by call site (``recording_kernel_inputs``)."""
+    from d3human_tpu_torch.utils import io as mesh_io
+
+    s = CLI_SCALES[scale]
+    name = "cli" if capture is None else "capture_cli"
+    cuda = device == "cuda"
+    argv, cfg, cuts = cli_command(scale, device, root, capture)
+    out_dir = argv[argv.index("--out-dir") + 1]
 
     def n(x):
         return max(2, int(x * s["iters_scale"]))
@@ -2778,6 +2893,226 @@ def resume_cli(argv: list, parity_samples, parity: dict, device) -> dict:
     return dict(seconds=resume_s, steps=0, parity_kept=sorted(parity_r),
                 launches={k: v for k, v in resume_counts.items()
                           if k != "calls"})
+
+
+CLI_CUT_DIR = "d3human_tpu_torch/build/smoke_cli_cut"
+
+
+def _numbers(x, prefix: str = "") -> dict:
+    """The numbers of a JSON tree by path."""
+    if isinstance(x, dict):
+        out = {}
+        for k, v in x.items():
+            out.update(_numbers(v, f"{prefix}/{k}"))
+        return out
+    if isinstance(x, list):
+        out = {}
+        for i, v in enumerate(x):
+            out.update(_numbers(v, f"{prefix}/{i}"))
+        return out
+    return {prefix: x} if isinstance(x, (int, float)) else {}
+
+
+def _npz(path: str) -> dict:
+    import numpy as np
+
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def compare_runs(want_dir: str, got_dir: str) -> dict:
+    """Two CLI out dirs bit for bit: every stage's newest state checkpoint
+    (every leaf), every seq delta npz and fine_all ply, every number of
+    PARITY.json's stages. Returns the counts compared."""
+    import numpy as np
+
+    from d3human_tpu_torch.train.checkpoint import latest_checkpoint
+
+    join = os.path.join
+    n = dict(checkpoints=0, leaves=0, deltas=0, plys=0, parity_numbers=0)
+    for stage, d in CLI_STAGE_DIRS.items():
+        cw = latest_checkpoint(join(want_dir, d, "ckp"))
+        cg = latest_checkpoint(join(got_dir, d, "ckp"))
+        check((cw is None) == (cg is None) and (cw is None or os.path.basename(
+            cw) == os.path.basename(cg)),
+            f"cli_cut: {stage} checkpoints {cw} / {cg}")
+        if cw is None:
+            continue
+        a, b = _npz(cw), _npz(cg)
+        check(a.keys() == b.keys(), f"cli_cut: {stage} checkpoint keys")
+        bad = [k for k in a if not np.array_equal(a[k], b[k])]
+        check(not bad, f"cli_cut: {stage} leaves differ: {bad[:4]}")
+        n["checkpoints"] += 1
+        n["leaves"] += len(a)
+    seq_w, seq_g = join(want_dir, "seq"), join(got_dir, "seq")
+    deltas = sorted(os.listdir(join(seq_w, "delta")))
+    check(deltas == sorted(os.listdir(join(seq_g, "delta"))),
+          "cli_cut: the seq deltas' files differ")
+    for fn in deltas:
+        a, b = _npz(join(seq_w, "delta", fn)), _npz(join(seq_g, "delta", fn))
+        check(a.keys() == b.keys() and all(
+            np.array_equal(a[k], b[k]) for k in a),
+            f"cli_cut: delta/{fn} differs")
+        n["deltas"] += 1
+    plys = sorted(f for f in os.listdir(seq_w) if f.startswith("fine_all_"))
+    for fn in plys:
+        with open(join(seq_w, fn), "rb") as fa, open(join(seq_g, fn),
+                                                      "rb") as fb:
+            check(fa.read() == fb.read(), f"cli_cut: {fn} differs")
+        n["plys"] += 1
+    pw, pg = (_numbers(json.load(open(join(d, "PARITY.json")))["stages"])
+              for d in (want_dir, got_dir))
+    check(pw == pg, "cli_cut: PARITY.json differs: " + str(
+        sorted(k for k in set(pw) | set(pg) if pw.get(k) != pg.get(k))[:6]))
+    n["parity_numbers"] = len(pw)
+    check(n["deltas"] > 0 and n["plys"] > 0 and n["checkpoints"] >= 3,
+          f"cli_cut: too little compared: {n}")
+    return n
+
+
+def phase_cli_cut(scale: str, device: str, cli: dict, root: str) -> dict:
+    """The ``cli`` phase's command again into a fresh out dir under
+    ``root``, cut inside the split stage (``CutRun`` from the
+    instrumented step counter as the split's second step starts, as the
+    CPU test cuts a run), then the same command with ``--resume``: every
+    final checkpoint leaf, seq delta and ply and every PARITY.json number
+    bit for bit the straight run's (``cli['out_dir']``). Seconds and steps
+    of both parts."""
+    import shutil
+
+    s = CLI_SCALES[scale]
+    st = cli["stages"]
+    stop_at = st["split_smpl"]["iterations"] + st["init"]["iterations"] + 1
+    shutil.rmtree(root, ignore_errors=True)
+    out_dir = os.path.join(root, "out")
+    argv = list(cli["argv"])
+    argv[argv.index("--out-dir") + 1] = out_dir
+    with instrumented_cli(device, stop_at=stop_at) as (mod, rec):
+        t0 = time.perf_counter()
+        try:
+            run_cli(mod, argv, s["parity_samples"])
+            cut = False
+        except CutRun:
+            cut = True
+        cut_s = time.perf_counter() - t0
+        cut_steps = rec["steps"]
+    check(cut and cut_steps == stop_at,
+          f"cli_cut: the run was not cut at step {stop_at} ({cut_steps})")
+    with instrumented_cli(device) as (mod, rec):
+        t0 = time.perf_counter()
+        text = run_cli(mod, argv + ["--resume"], s["parity_samples"])
+        resume_s = time.perf_counter() - t0
+        resume_steps = rec["steps"]
+    check("[done]" in text.split("\n"), "cli_cut: no [done] line")
+    check(cut_steps + resume_steps >= cli["steps"],
+          f"cli_cut: {cut_steps} + {resume_steps} steps for the straight "
+          f"run's {cli['steps']}")
+    compared = compare_runs(cli["out_dir"], out_dir)
+    out = dict(cut_at_step=stop_at, cut_in_stage="split", cut_s=cut_s,
+               resume_s=resume_s, resume_steps=resume_steps,
+               straight_steps=cli["steps"], bitwise=True, **compared)
+    emit("cli_cut", **out)
+    return out
+
+
+SCORER_TOL = 1e-6        # score_seq_partial against the CLI's own entry
+
+
+def phase_scorers(scale: str, device: str, cli: dict, root: str) -> dict:
+    """The two parity scorers on the ``cli`` phase's out dir:
+    ``eval_parity`` over the run's frames as views (every stage has its
+    entry, the union's IoUs and the ceilings in (0, 1], the halves' IoUs
+    in [0, 1], PSNR and Chamfers finite);
+    ``score_seq_partial`` in place (its Chamfers within SCORER_TOL of the
+    CLI's own seq entry; PARITY.json is put back as it was), then on a
+    copy of the seq meshes less the last frame's (``n_frames`` one less,
+    the ``partial`` marker). Seconds of each; the kernels' launches and
+    calls of the three runs."""
+    import shutil
+
+    import d3human_tpu_torch.train_d3h as cli_mod
+    from d3human_tpu_torch.scripts import eval_parity, score_seq_partial
+
+    s = CLI_SCALES[scale]
+    frames, out_dir = s["frames"], cli["out_dir"]
+    cfg_path = cli["argv"][cli["argv"].index("--config") + 1]
+    common = ["--config", cfg_path, "--n-frames", str(frames), "--device",
+              device]
+    saved = cli_mod.PARITY_SAMPLES
+    if s["parity_samples"] is not None:
+        cli_mod.PARITY_SAMPLES = s["parity_samples"]
+    ppath = os.path.join(out_dir, "PARITY.json")
+    with open(ppath, "rb") as fh:
+        parity_bytes = fh.read()
+    sync(device)
+    reset_counts()
+    try:
+        t0 = time.perf_counter()
+        check(eval_parity.main(common + [
+            "--out-dir", out_dir, "--stages", "split_smpl,init,split,seq",
+            "--n-views", str(frames)]) == 0, "scorers: eval_parity failed")
+        sync(device)
+        ev_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        check(score_seq_partial.main(common + ["--out-dir", out_dir]) == 0,
+              "scorers: score_seq_partial failed")
+        sync(device)
+        sp_s = time.perf_counter() - t0
+        with open(ppath) as fh:
+            full = json.load(fh)["stages"]["seq"]
+        part_dir = os.path.join(root, "out")
+        shutil.rmtree(root, ignore_errors=True)
+        os.makedirs(os.path.join(part_dir, "seq"))
+        for f in range(frames - 1):
+            shutil.copy(os.path.join(out_dir, "seq", f"fine_all_{f}.ply"),
+                        os.path.join(part_dir, "seq"))
+        check(score_seq_partial.main(common + ["--out-dir", part_dir]) == 0,
+              "scorers: score_seq_partial on the partial copy failed")
+        with open(os.path.join(part_dir, "PARITY.json")) as fh:
+            part = json.load(fh)["stages"]["seq"]
+    finally:
+        cli_mod.PARITY_SAMPLES = saved
+        with open(ppath, "wb") as fh:
+            fh.write(parity_bytes)
+    counts = read_counts()
+    calls = counts.pop("calls")
+    with open(os.path.join(out_dir, "PARITY_MULTIVIEW.json")) as fh:
+        mv = json.load(fh)
+    for stage in ("split_smpl", "init", "split", "seq"):
+        check(stage in mv, f"scorers: eval_parity has no {stage} entry")
+    for stage in ("split_smpl", "init", "split"):
+        e = mv[stage]
+        check(e["n_views"] == frames, f"scorers: {stage} {e['n_views']} "
+              "views")
+        # the union's IoUs and the halves' ceilings are positive; a half's
+        # own IoU may be 0 (the 2-iteration split_smpl's body half renders
+        # nothing: body_iou 0.0 in the run's own PARITY.json)
+        halves = ("body", "cloth") if stage != "init" else ()
+        for k in ["iou_mean", "iou_min"] + [f"{p}_iou_ceiling"
+                                             for p in halves]:
+            check(0 < e[k] <= 1, f"scorers: {stage} {k} = {e.get(k)}")
+        for k in [f"{p}_iou_mean" for p in halves]:
+            check(0 <= e[k] <= 1, f"scorers: {stage} {k} = {e.get(k)}")
+        check(math.isfinite(e["psnr_mean"]), f"scorers: {stage} psnr")
+        for k, v in e.items():
+            if k.startswith("chamfer"):
+                check(math.isfinite(v), f"scorers: {stage} {k} = {v}")
+    check(mv["seq"]["n_frames"] == frames
+          and math.isfinite(mv["seq"]["chamfer_all_mean"]),
+          f"scorers: eval_parity's seq entry {mv['seq']}")
+    want = cli["parity"]["seq"]
+    rel = {k: abs(full[k] - want[k]) / max(abs(want[k]), 1e-30)
+           for k in ("chamfer_per_frame_mean", "chamfer_per_frame_max")}
+    check(max(rel.values()) <= SCORER_TOL and full["n_frames"] == frames,
+          f"scorers: score_seq_partial {full} against the CLI's {want}")
+    check(part["n_frames"] == frames - 1 and "partial" in part,
+          f"scorers: score_seq_partial on {frames - 1} frames: {part}")
+    out = dict(eval_parity_s=ev_s, score_seq_partial_s=sp_s,
+               multiview=mv, seq_partial=dict(full=full, rel_to_cli=rel,
+                                              partial=part),
+               launches=counts, calls=calls)
+    emit("scorers", **out)
+    return out
 
 
 # ---------------------------------------------------------------- captures
@@ -3315,13 +3650,13 @@ def clone_tree(tree):
 
 @contextlib.contextmanager
 def deterministic():
-    """PyTorch's deterministic algorithms while active (warn only): the
-    CUDA accumulations whose float atomics make the sum's order vary
-    (``index_put_`` with accumulate in the gathers' backward,
-    ``index_add_``) run in a fixed order, so two runs of one computation
-    can agree bit for bit (cuBLAS needs CUBLAS_WORKSPACE_CONFIG, which
-    ``main`` sets). Yields a list that receives, on exit, the first line
-    of each warning about an op without a deterministic version."""
+    """PyTorch's deterministic algorithms while active (warn only), as a
+    cross-check: the port's paths hold no op that PyTorch lists as
+    nondeterministic, so a run under this mode must equal the default
+    mode's bit for bit, and no op may warn (cuBLAS needs
+    CUBLAS_WORKSPACE_CONFIG, which ``main`` sets). Yields a list that
+    receives, on exit, the first line of each warning about an op without
+    a deterministic version."""
     import warnings
 
     import torch
@@ -3360,6 +3695,100 @@ def compare_trees(got, want) -> tuple:
     return same, worst, where
 
 
+DET_STEPS = 3            # steps a stage in the determinism phase
+DET_SEED = 11            # the determinism phase's generators
+
+
+def det_steps(sc: dict, stage: str, device: str) -> dict:
+    """DET_STEPS steps of ``stage`` from a fresh state on a copy of the
+    scene's parameters (no warm-up in the schedule, so the first step
+    moves them), the generator seeded DET_SEED: the state, the losses as
+    floats and each step's ms (CUDA events on the card)."""
+    import torch
+
+    from d3human_tpu_torch.train.step import init_state, make_train_step
+
+    cfg, raster_opts = stage_cfg(sc, stage)
+    cfg = no_warmup(cfg)
+    state = init_state(stage, clone_tree(sc["params"]), cfg)
+    step_fn = make_train_step(stage, sc["model"], sc["tex"], sc["perceptual"],
+                              sc["perc_params"], cfg, raster_opts,
+                              template=sc.get("seq_template"))
+    gen = torch.Generator(device=device).manual_seed(DET_SEED)
+    sync(device)
+    metrics, ms = [], []
+    for _ in range(DET_STEPS):
+        t0 = time.perf_counter()
+        state, m = step_fn(state, sc["target"], gen)
+        sync(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+    return dict(state=state, losses=[scalars(m) for m in metrics], ms=ms)
+
+
+def same_run(a: dict, b: dict) -> tuple:
+    """(bit for bit, what differs) of two ``det_steps`` results: every
+    parameter, every Adam moment and count, every loss."""
+    import torch
+
+    same, worst, where = compare_trees(a["state"].params, b["state"].params)
+    diff = [] if same else [f"params rel-L2 {worst} ({where})"]
+    oa, ob = a["state"].opt, b["state"].opt
+    for name in ("mu", "nu"):
+        ma, mb = getattr(oa, name), getattr(ob, name)
+        bad = sorted(k for k in set(ma) | set(mb)
+                     if k not in ma or k not in mb
+                     or not torch.equal(ma[k], mb[k]))
+        if bad:
+            diff.append(f"Adam {name}: {bad[:3]}")
+    if oa.count != ob.count:
+        diff.append(f"Adam count {oa.count} != {ob.count}")
+    if a["losses"] != b["losses"]:
+        diff.append("losses")
+    return not diff, diff
+
+
+def phase_determinism(sc: dict, device: str = "cuda") -> dict:
+    """DET_STEPS init, split and seq steps from copies of the scene's
+    parameters, twice in PyTorch's default mode with the same generators,
+    then once more under ``deterministic()``: every parameter, Adam moment
+    and loss bit for bit across the three, and no op warned under the
+    deterministic mode; then one validation half (cloth) twice with the
+    same generator, every buffer bit for bit. Step ms in both modes."""
+    import torch
+
+    out = {}
+    for stage in ("init", "split", "seq"):
+        runs = [det_steps(sc, stage, device) for _ in range(2)]
+        with deterministic() as nondet:
+            runs.append(det_steps(sc, stage, device))
+        for i, other in ((1, "second default run"),
+                         (2, "deterministic() run")):
+            same, diff = same_run(runs[0], runs[i])
+            check(same, f"determinism {stage}: the {other} differs from "
+                  f"the first: {diff}")
+        check(not nondet, f"determinism {stage}: ops without a "
+              f"deterministic version: {nondet}")
+        for ln in runs[0]["losses"]:
+            check(all(math.isfinite(v) for v in ln.values()),
+                  f"determinism {stage}: a loss is not finite")
+        out[stage] = dict(steps=DET_STEPS, bitwise=True,
+                          nondeterministic_ops=nondet,
+                          default_ms=runs[0]["ms"] + runs[1]["ms"],
+                          deterministic_ms=runs[2]["ms"],
+                          total=[ln["total"] for ln in runs[0]["losses"]])
+        del runs
+    bufs = [_tensors(validation_render(sc, 1.0, torch.Generator(
+        device=device).manual_seed(DET_SEED))[1]) for _ in range(2)]
+    differ = [i for i, (a, b) in enumerate(zip(*bufs))
+              if not torch.equal(a, b)]
+    check(not differ and len(bufs[0]) > 0,
+          f"determinism validate: buffers {differ} of the render differ")
+    out["validate"] = dict(buffers=len(bufs[0]), bitwise=True)
+    emit("determinism", **out)
+    return out
+
+
 def merge_recorded(*inputs) -> dict:
     """Kernel inputs recorded on several runs as one record: calls summed
     by site, each site's biggest call kept."""
@@ -3379,9 +3808,10 @@ def merge_recorded(*inputs) -> dict:
 
 def check_path_counts(phase: str, counts: dict, calls: dict,
                       per_call: dict, n: int) -> None:
-    """On the card: first_k and the resolve called ``per_call[k] * n``
-    times, the scatter launched, no resolve with a floor."""
-    from d3human_tpu_torch.ops import compaction
+    """On the card: first_k, the resolve and the scan called
+    ``per_call[k] * n`` times, the scatter launched, no resolve with a
+    floor."""
+    from d3human_tpu_torch.ops import compaction, scan
 
     check(counts["coo_scatter_add"] > 0, f"{phase}: the scatter never "
           "launched")
@@ -3392,7 +3822,9 @@ def check_path_counts(phase: str, counts: dict, calls: dict,
               f"expected {per * n}")
     check(counts["first_k_indices"]
           == compaction.LAUNCHES * calls["first_k_indices"]
-          and counts["resolve_tiles"] == calls["resolve_tiles"],
+          and counts["resolve_tiles"] == calls["resolve_tiles"]
+          and counts["inclusive_scan"]
+          == scan.LAUNCHES * calls["inclusive_scan"],
           f"{phase}: launches {counts} for calls {calls}")
 
 
@@ -3404,13 +3836,11 @@ def phase_parallel_seq(sc: dict, device: str = "cuda") -> dict:
     site; then, under ``deterministic()``, the runner again and a serial
     loop of ``make_train_step("seq")`` a frame from the same shared
     parameters with a fresh optimizer and the same generators: each
-    frame's parameters and losses bit for bit, or within PAR_TOL rel-L2
-    with the ops that have no deterministic version named. The frames
-    differ. Wall seconds, ms an iteration a frame, peak memory, launches
-    and calls, and how far the timed run lies from the deterministic one
-    (Adam's first steps divide each gradient by its own size, so the
-    atomics' rounding moves near-zero gradients' updates by up to the
-    learning rate)."""
+    frame's parameters and losses bit for bit (a rel-L2 within PAR_TOL and
+    the ops without a deterministic version are reported). The frames
+    differ. The timed run, in PyTorch's default mode, is bit for bit the
+    deterministic one (no op of the path adds in a varying order). Wall
+    seconds, ms an iteration a frame, peak memory, launches and calls."""
     import torch
 
     from d3human_tpu_torch.parallel.frames import make_parallel_seq_runner
@@ -3464,12 +3894,22 @@ def phase_parallel_seq(sc: dict, device: str = "cuda") -> dict:
             totals_same = totals_same and got == want
             worst = max(worst, max(abs(x - y) / abs(y)
                                    for x, y in zip(got, want)))
-    check(same and totals_same or (worst <= PAR_TOL and nondet),
+    # rel-L2 within PAR_TOL with a named nondeterministic op is reported,
+    # and fails all the same: the runner is bit for bit the serial loops
+    check(same and totals_same,
           f"parallel_seq: the runner against the serial steps: rel "
-          f"{worst} ({where}); ops without a deterministic version: "
-          f"{nondet}")
-    _, timed_vs_det, timed_where = compare_trees(timed_frames[0],
-                                                 per_frame[0])
+          f"{worst} ({where}, within PAR_TOL: {worst <= PAR_TOL}); ops "
+          f"without a deterministic version: {nondet}")
+    timed_same, timed_vs_det, timed_where = True, 0.0, None
+    for f in range(PAR_FRAMES):
+        s_f, w_f, k_f = compare_trees(timed_frames[f], per_frame[f])
+        timed_same = timed_same and s_f
+        if w_f >= timed_vs_det:
+            timed_vs_det, timed_where = w_f, k_f
+    timed_same = timed_same and torch.equal(timed_totals, totals)
+    check(timed_same, f"parallel_seq: the timed run (default mode) is not "
+          f"bit for bit the deterministic one: rel-L2 {timed_vs_det} "
+          f"({timed_where})")
     out = dict(frames=PAR_FRAMES, iters=PAR_ITERS,
                faces=int(sc["seq_template"].f.shape[0]),
                world=mesh.world, group=mesh.group is not None,
@@ -3478,7 +3918,8 @@ def phase_parallel_seq(sc: dict, device: str = "cuda") -> dict:
                peak_mem_gib=peak, bitwise=same and totals_same,
                max_rel_err=worst, worst_leaf=where,
                nondeterministic_ops=nondet,
-               timed_vs_deterministic=dict(rel_l2=timed_vs_det,
+               timed_vs_deterministic=dict(bitwise=timed_same,
+                                           rel_l2=timed_vs_det,
                                            leaf=timed_where),
                totals=timed_totals.tolist(), frames_differ_in=len(moved),
                launches=counts, calls=calls)
@@ -3678,9 +4119,10 @@ def parallel_worker(rank: int, world: int, store: str, job_path: str,
     import torch
     import torch.distributed as dist
 
+    from d3human_tpu_torch.utils.backend import configure_backends
+
     torch.set_num_threads(1)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    configure_backends()
     dist.init_process_group("gloo", init_method="file://" + store,
                             rank=rank, world_size=world,
                             timeout=datetime.timedelta(minutes=5))
@@ -3881,10 +4323,9 @@ def main() -> int:
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import d3human_tpu_torch  # noqa: F401  (fails outside the checkout)
     from d3human_tpu_torch.ops import cuda_lib
+    from d3human_tpu_torch.utils.backend import configure_backends
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+    configure_backends()
     smi = smi_line()
     emit("device", nvidia_smi=smi, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
@@ -3929,6 +4370,7 @@ def main() -> int:
                                            phase="surgery_seq_step")
     del ssc
     paths["seq_step"] = phase_step(sc, "seq", SEQ_STEPS)
+    phase_determinism(sc)
     phase_profile("seq step", lambda: one_more_step(sc, "seq"))
     phase_seq_knn(sc)
     here = os.path.dirname(os.path.abspath(__file__))
@@ -3957,6 +4399,9 @@ def main() -> int:
         os.path.dirname(os.path.abspath(__file__)), CLI_DIR))
     paths["cli"] = {k: cli[k] for k in ("launches", "calls")}
     phase_cli_kernels(rows, cli.pop("inputs"))
+    phase_cli_cut("full", "cuda", cli, os.path.join(here, CLI_CUT_DIR))
+    paths["scorers"] = phase_scorers("full", "cuda", cli, os.path.join(
+        here, CLI_CUT_DIR, "scorers"))
     phase_bake("full", "cuda", os.path.join(
         os.path.dirname(os.path.abspath(__file__)), CLI_DIR))
     del cli
@@ -3980,8 +4425,8 @@ def main() -> int:
         # template, SEQ_STEPS seq steps, the pbr renders, MOBILENET_STEPS
         # init and split steps with the MobileNetV2 backbone, the API-only
         # modules, the frame-parallel seq runner, the DP steps, the CLI's
-        # first run on the synthetic scene, its --seq-parallel run and its
-        # run on the exported capture); first_k
+        # first run on the synthetic scene, the two scorers on it, its
+        # --seq-parallel run and its run on the exported capture); first_k
         # counts its count and write launches, the scatter each launch of
         # its two sum kernels, and their calls are the calls of the wrapper
         for what in ("launches", "calls"):
@@ -3991,7 +4436,10 @@ def main() -> int:
             check(r[what] > 0, f"{r['name']}: no {what} on the driven paths")
             for path in ("parallel_seq", "dp"):
                 n = r[what + "_by_path"][path]
-                check(n == 0 if r["name"] == "resolve_tiles_peel" else n > 0,
+                # no depth peel in training; no eikonal term in seq
+                none = r["name"] == "resolve_tiles_peel" or (
+                    r["name"] == "inclusive_scan" and path == "parallel_seq")
+                check(n == 0 if none else n > 0,
                       f"{r['name']}: {n} {what} on the {path} path")
     emit("paths", init_step={"steps": INIT_STEPS},
          split_step={"steps": SPLIT_STEPS},
@@ -4006,6 +4454,7 @@ def main() -> int:
          parallel_seq={"frames": PAR_FRAMES, "iters": PAR_ITERS},
          dp={"stages": ["init", "split"], "batch": DP_BATCH},
          cli={"runs": 1, "scale": "full"},
+         scorers={"eval_parity": 1, "score_seq_partial": 2},
          cli_parallel={"runs": 1, "scale": "full"},
          capture={"runs": 1, "scale": "full"},
          launches={k: v["launches"] for k, v in paths.items()},

@@ -16,12 +16,15 @@ the JAX side. The convolution runs through
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from d3human_tpu_torch.ops.scatter import gather_rows
 
 Params = dict
 
@@ -81,6 +84,34 @@ def _blur_down(x: torch.Tensor, k2: torch.Tensor) -> torch.Tensor:
     return F.conv2d(x, k2.expand(C, 1, 5, 5), stride=2, groups=C)
 
 
+@functools.lru_cache(maxsize=64)
+def _linear_weights(n_in: int, n_out: int) -> np.ndarray:
+    """[n_out, n_in] weights of ``F.interpolate``'s linear resize along one
+    axis (align_corners=False, half-pixel centres, the source clamped at
+    0 and its neighbour at the edge): two taps a row, position-dependent
+    unless n_out = 2 n_in, so a matrix rather than a fixed stencil."""
+    scale = n_in / n_out
+    src = np.maximum((np.arange(n_out) + 0.5) * scale - 0.5, 0.0)
+    i0 = np.minimum(np.floor(src).astype(np.int64), n_in - 1)
+    i1 = np.minimum(i0 + 1, n_in - 1)
+    lam = (src - i0).astype(np.float32)
+    w = np.zeros((n_out, n_in), np.float32)
+    np.add.at(w, (np.arange(n_out), i1), lam)
+    np.add.at(w, (np.arange(n_out), i0), np.float32(1.0) - lam)
+    return w
+
+
+def upsample_bilinear(x: torch.Tensor, size) -> torch.Tensor:
+    """``F.interpolate(x, size, mode="bilinear", align_corners=False)`` of
+    NCHW ``x`` as two products with fixed weight matrices (rows, then
+    columns): their backward is two products, where the interpolation's
+    own backward adds with atomics on a card."""
+    h, w = x.shape[-2:]
+    wy = torch.as_tensor(_linear_weights(h, size[0]), device=x.device)
+    wx = torch.as_tensor(_linear_weights(w, size[1]), device=x.device)
+    return wy @ x @ wx.T
+
+
 class PyramidPerceptual:
     """Weight-free perceptual loss (JAX ``models/perceptual.py:107``): at
     each of ``n_levels`` scales the band-pass detail (the image minus its
@@ -102,8 +133,7 @@ class PyramidPerceptual:
         bands = []
         for _ in range(self.n_levels):
             down = _blur_down(cur, k2)
-            up = F.interpolate(down, size=cur.shape[-2:], mode="bilinear",
-                               align_corners=False)
+            up = upsample_bilinear(down, cur.shape[-2:])
             bands.append(cur - up)
             bands.append(cur[..., :, 1:] - cur[..., :, :-1])
             bands.append(cur[..., 1:, :] - cur[..., :-1, :])
@@ -200,8 +230,13 @@ def random_crop_pair(generator: Optional[torch.Generator],
     # like a dynamic slice, a corner too far out is clamped into the image
     rows = top.clamp(0, H - ch) + torch.arange(ch, device=dev)
     cols = left.clamp(0, W - cw) + torch.arange(cw, device=dev)
+    pix = (rows[:, None] * W + cols[None, :]).reshape(-1)
 
     def cut(img):
-        return img.index_select(1, rows).index_select(2, cols)
+        # one row gather of the crop's pixels: its backward is the scatter
+        N, C = img.shape[0], img.shape[3]
+        table = img.permute(1, 2, 0, 3).reshape(H * W, N * C)
+        return gather_rows(table, pix).reshape(ch, cw, N, C).permute(
+            2, 0, 1, 3)
 
     return cut(img_a), cut(img_b)

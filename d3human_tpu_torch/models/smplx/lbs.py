@@ -9,6 +9,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from d3human_tpu_torch.ops.scatter import gather_rows
+
 
 def batch_rodrigues(rot_vecs: torch.Tensor,
                     epsilon: float = 1e-8) -> torch.Tensor:
@@ -37,8 +39,14 @@ def batch_rigid_transform(rot_mats: torch.Tensor, joints: torch.Tensor,
                           parents: Tuple[int, ...]):
     """Kinematic chain. Returns (posed_joints [B,J,3], A [B,J,4,4])."""
     parents = tuple(int(p) for p in parents)
+    B, J = joints.shape[:2]
+    # the parents' joints by a row gather (a joint is the parent of several:
+    # the backward adds in the scatter's fixed order)
+    by_joint = joints.transpose(0, 1).reshape(J, B * 3)
+    parent_joints = gather_rows(by_joint, torch.tensor(
+        parents[1:], device=joints.device)).reshape(J - 1, B, 3)
     rel_joints = joints - torch.cat(
-        [torch.zeros_like(joints[:, :1]), joints[:, list(parents[1:])]],
+        [torch.zeros_like(joints[:, :1]), parent_joints.transpose(0, 1)],
         dim=1)
     transforms_mat = transform_mat(rot_mats, rel_joints)
     chain = [transforms_mat[:, 0]]

@@ -20,7 +20,7 @@ from typing import Dict, Iterable, Sequence
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
-SOURCES = ("first_k", "scatter", "raster_resolve")
+SOURCES = ("first_k", "scatter", "raster_resolve", "scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

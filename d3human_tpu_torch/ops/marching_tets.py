@@ -256,9 +256,10 @@ def _gshell_level1(grid: TetGrid, pos: torch.Tensor, sdf: torch.Tensor,
     m_c = vm_c[..., 3]
     m_c_stop = vm_c[..., 4]
     v_c = vm_c[..., :3]
-    nxt = torch.tensor([1, 2, 3, 0], device=dev)
-    mA, mB = m_c, m_c[:, nxt]
-    vA, vB = v_c, v_c[:, nxt]
+    # the cycle's next corner, [:, [1, 2, 3, 0]], as a roll (whose backward
+    # is a roll, not an index's adds)
+    mA, mB = m_c, torch.roll(m_c, -1, 1)
+    vA, vB = v_c, torch.roll(v_c, -1, 1)
     same_sign = (torch.sign(mA) + torch.sign(mB)).abs() == 2
     bdenom = mA - mB
     b_ok = (~same_sign) & (bdenom.abs() > 1e-12)
@@ -267,7 +268,8 @@ def _gshell_level1(grid: TetGrid, pos: torch.Tensor, sdf: torch.Tensor,
     bwB = torch.where(b_ok, mA / bdenom, zero)
     verts_b = vA * bwA[..., None] + vB * bwB[..., None]         # [MT, 4, 3]
     # carried mSDF: stop-gradient values with detached coefficients
-    msdf_b = m_c_stop * bwA.detach() + m_c_stop[:, nxt] * bwB.detach()
+    msdf_b = (m_c_stop * bwA.detach()
+              + torch.roll(m_c_stop, -1, 1) * bwB.detach())
 
     verts_wt = torch.where(vert_ok[:, None], verts_wt, zero)
     verts_aug_raw = torch.cat([verts_wt, verts_b.reshape(MT * 4, 3)], dim=0)

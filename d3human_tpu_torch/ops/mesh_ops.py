@@ -11,6 +11,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from d3human_tpu_torch.ops.scan import inclusive_scan
 from d3human_tpu_torch.ops.scatter import gather_rows, segment_add_rows
 
 
@@ -132,7 +133,9 @@ def sample_points_on_mesh(
     """Area-weighted surface samples [n, 3]: inverse-CDF over face areas,
     then uniform barycentrics. ``draws = (u [n], uv [n, 2])`` injects the
     uniform numbers (tests pass the JAX package's); otherwise they come
-    from ``generator``. ``fn_raw`` = precomputed unnormalized normals."""
+    from ``generator``. ``fn_raw`` = precomputed unnormalized normals.
+    The area CDF is ``inclusive_scan`` and the corners a ``gather_rows``:
+    both add in a fixed order on the card."""
     fn = face_normals(verts, faces, normalize=False) if fn_raw is None \
         else fn_raw
     area = 0.5 * torch.sqrt(torch.clamp_min((fn * fn).sum(-1), 1e-20))
@@ -145,14 +148,14 @@ def sample_points_on_mesh(
                         device=verts.device)
     else:
         u01, uv = (d.to(verts.device) for d in draws)
-    cdf = torch.cumsum(area, 0)
+    cdf = inclusive_scan(area)
     u = u01 * cdf[-1]
     fidx = torch.searchsorted(cdf, u).clamp(0, area.shape[0] - 1)
     su = torch.sqrt(uv[:, 0:1])
     b0 = 1.0 - su
     b1 = su * (1.0 - uv[:, 1:2])
     b2 = su * uv[:, 1:2]
-    tri = verts[faces[fidx].long()]                       # [S, 3, 3]
+    tri = gather_rows(verts, faces[fidx])                 # [S, 3, 3]
     return b0 * tri[:, 0] + b1 * tri[:, 1] + b2 * tri[:, 2]
 
 

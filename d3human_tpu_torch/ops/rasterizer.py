@@ -38,7 +38,7 @@ from d3human_tpu_torch.ops.raster_resolve import (
     pack_face_rows, resolve_tiles_indexed, unpack_keys,
 )
 from d3human_tpu_torch.ops.scatter import (
-    coo_scatter_add, gather_rows, scatter_rows_sorted,
+    coo_scatter_add, gather_rows, scatter_rows_sorted, segment_add_rows,
 )
 
 
@@ -445,6 +445,12 @@ def _degenerate_guard(bary: torch.Tensor) -> torch.Tensor:
     return torch.where(bad, safe, bary)
 
 
+def _next(x: torch.Tensor) -> torch.Tensor:
+    """x[..., [1, 2, 0]] of a corner triple as a roll, whose backward is a
+    roll (an index's backward adds into zeros)."""
+    return torch.roll(x, -1, -1)
+
+
 def barycentrics_compact(tri_clip: torch.Tensor, pix_xy: torch.Tensor,
                          resolution) -> torch.Tensor:
     """Perspective-correct barycentrics [P, 3] from clip-space corners
@@ -454,10 +460,9 @@ def barycentrics_compact(tri_clip: torch.Tensor, pix_xy: torch.Tensor,
     xs = (tri_clip[..., 0] / w * 0.5 + 0.5) * W
     ys = (0.5 - tri_clip[..., 1] / w * 0.5) * H
     px, py = pix_xy[..., 0:1], pix_xy[..., 1:2]
-    k1 = [1, 2, 0]
     # edge k at the pixel; b_k is opposite edge k -> edges (1, 2, 0)
-    e = ((xs[..., k1] - xs) * (py - ys) - (ys[..., k1] - ys) * (px - xs))
-    bs_num = e[..., k1]
+    e = ((_next(xs) - xs) * (py - ys) - (_next(ys) - ys) * (px - xs))
+    bs_num = _next(e)
     ssum = bs_num[..., 0] + bs_num[..., 1] + bs_num[..., 2]
     ssum = torch.where(ssum.abs() < 1e-12, 1e-12, ssum)
     bw = bs_num / ssum[..., None] / w
@@ -525,11 +530,10 @@ def aa_geometry_compact(verts_clip, faces, rast: Rast, pidx, pvalid,
                 torch.div(i, W, rounding_mode="floor").float() + 0.5)
 
     (pax, pay), (pbx, pby) = centre(ia_c), centre(ib_c)
-    k1 = [1, 2, 0]
 
     def edges_at(qx, qy):
-        return ((xs[..., k1] - xs) * (qy[..., None] - ys)
-                - (ys[..., k1] - ys) * (qx[..., None] - xs))     # [Q, 3]
+        return ((_next(xs) - xs) * (qy[..., None] - ys)
+                - (_next(ys) - ys) * (qx[..., None] - xs))     # [Q, 3]
 
     Ea, Eb = edges_at(pax, pay), edges_at(pbx, pby)
     sgn = torch.where(Ea.sum(-1, keepdim=True) + Eb.sum(-1, keepdim=True)
@@ -537,8 +541,8 @@ def aa_geometry_compact(verts_clip, faces, rast: Rast, pidx, pvalid,
     aw = a_wins[..., None]
     Ew = torch.where(aw, Ea, Eb) * sgn
     Eo = torch.where(aw, Eb, Ea) * sgn
-    ex = (xs[..., k1] - xs).abs()
-    ey = (ys[..., k1] - ys).abs()
+    ex = (_next(xs) - xs).abs()
+    ey = (_next(ys) - ys).abs()
     owns = (ey >= ex) if axis == 1 else (ex > ey)
     flips = (Ew > 0) & (Eo < 0) & owns
     denom = Ew - Eo
@@ -553,15 +557,19 @@ def aa_geometry_compact(verts_clip, faces, rast: Rast, pidx, pvalid,
 
 def apply_aa_sparse(img: torch.Tensor, pairs) -> torch.Tensor:
     """Apply the compacted AA blend deltas (one entry of ``pairs`` per
-    axis) to a [H, W, C] image; out-of-range pair pixels are dropped."""
+    axis) to a [H, W, C] image; out-of-range pair pixels are dropped. The
+    pair colours are one ``gather_rows`` and the deltas one
+    ``segment_add_rows`` an axis, so the backward adds in the scatter's
+    fixed order (no float atomics, no hot row)."""
     H, W, C = img.shape
     n = H * W
     flat = torch.cat([img.reshape(n, C),
                       torch.zeros((1, C), dtype=img.dtype,
                                   device=img.device)])  # row n absorbs drops
     for (ia, ib, a_wins, spill, recede) in pairs:
-        ca = flat[ia.clamp(max=n - 1)]
-        cb = flat[ib.clamp(max=n - 1)]
+        q = ia.shape[0]
+        cab = gather_rows(flat, torch.cat([ia, ib]).clamp(max=n - 1))
+        ca, cb = cab[:q], cab[q:]
         aw = a_wins[..., None]
         wcol = torch.where(aw, ca, cb)
         lcol = torch.where(aw, cb, ca)
@@ -569,8 +577,9 @@ def apply_aa_sparse(img: torch.Tensor, pairs) -> torch.Tensor:
         d_w = (lcol - wcol) * recede[..., None]
         d_a = torch.where(aw, d_w, d_l)
         d_b = torch.where(aw, d_l, d_w)
-        flat = flat.index_add(0, torch.where(ia < n, ia, n), d_a)
-        flat = flat.index_add(0, torch.where(ib < n, ib, n), d_b)
+        dest = torch.cat([torch.where(ia < n, ia, n),
+                          torch.where(ib < n, ib, n)])
+        flat = flat + segment_add_rows(torch.cat([d_a, d_b]), dest, n + 1)
     return flat[:n].reshape(H, W, C)
 
 

@@ -12,6 +12,9 @@ from typing import Dict, Tuple
 
 import torch
 
+from d3human_tpu_torch.ops.scan import inclusive_scan
+from d3human_tpu_torch.ops.scatter import gather_rows
+
 Params = dict
 
 
@@ -37,8 +40,9 @@ def update_pdf(params: Params) -> Dict[str, torch.Tensor]:
     y = (torch.arange(H, dtype=torch.float32, device=base.device) + 0.5) / H
     pdf = base.amax(-1) * torch.sin(y * math.pi)[:, None]
     pdf = pdf / pdf.sum().clamp_min(1e-12)
-    cols = torch.cumsum(pdf, dim=1)
-    rows = torch.cumsum(cols[:, -1:].expand(H, W), dim=0)
+    # fixed-order scans (every column of rows is the same scan)
+    cols = inclusive_scan(pdf)
+    rows = inclusive_scan(cols[:, -1])[:, None].expand(H, W)
     one = torch.ones((), device=base.device)
     cols = cols / torch.where(cols[:, -1:] > 0, cols[:, -1:], one)
     rows = rows / torch.where(rows[-1:, :] > 0, rows[-1:, :], one)
@@ -61,10 +65,14 @@ def sample_latlong(params: Params, dirs: torch.Tensor) -> torch.Tensor:
     u1 = torch.remainder(u0 + 1, W)
     v0 = v0.to(torch.int32).clamp(0, H - 1).long()
     v1 = (v0 + 1).clamp(0, H - 1)
-    return (base[v0, u0] * ((1 - fu) * (1 - fv))
-            + base[v0, u1] * (fu * (1 - fv))
-            + base[v1, u0] * ((1 - fu) * fv)
-            + base[v1, u1] * (fu * fv))
+    # the four taps by one row gather, whose backward is the scatter
+    taps = gather_rows(base.reshape(H * W, -1),
+                       torch.stack([v0 * W + u0, v0 * W + u1, v1 * W + u0,
+                                    v1 * W + u1], -1))
+    return (taps[..., 0, :] * ((1 - fu) * (1 - fv))
+            + taps[..., 1, :] * (fu * (1 - fv))
+            + taps[..., 2, :] * ((1 - fu) * fv)
+            + taps[..., 3, :] * (fu * fv))
 
 
 def generate_image(params: Params, res: Tuple[int, int]) -> torch.Tensor:

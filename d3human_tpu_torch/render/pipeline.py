@@ -40,7 +40,7 @@ from d3human_tpu_torch.ops.rasterizer import (
     pixel_centers_at, rasterize, rasterize_bruteforce, scatter_image,
     visible_face_mask, xfm_points,
 )
-from d3human_tpu_torch.ops.scatter import gather_rows
+from d3human_tpu_torch.ops.scatter import gather_rows, scatter_rows_sorted
 from d3human_tpu_torch.render.envshade import env_shade
 
 
@@ -420,15 +420,16 @@ def render_mesh_full(
         tex_j = tex
     elif max_cov < npix:
         cov_idx = first_k_indices(cover.reshape(-1), max_cov, npix).long()
-        pts = torch.cat([gb_pos_orig.reshape(-1, 3),
-                         torch.zeros((1, 3), device=dev)])[cov_idx]
+        pts = gather_rows(torch.cat([gb_pos_orig.reshape(-1, 3),
+                                     torch.zeros((1, 3), device=dev)]),
+                          cov_idx)
         tex_c = tex_module.sample(tex_params, pts)
 
         def scatter(vals, idx):
-            # a plain set: the fill slots all carry index npix, a row that
-            # is cut off again
-            buf = torch.zeros((npix + 1, vals.shape[-1]), device=dev)
-            return buf.index_copy(0, idx, vals)[:npix].reshape(*full_res, -1)
+            # a plain set at ascending pixels: the fill slots all carry
+            # index npix, which is dropped
+            return scatter_rows_sorted(vals, idx, npix).reshape(*full_res,
+                                                                 -1)
 
         tex = scatter(tex_c, cov_idx)
         # jittered smoothness tap on every 2nd covered pixel; |jitter - base|

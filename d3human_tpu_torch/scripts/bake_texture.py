@@ -33,6 +33,7 @@ from d3human_tpu_torch.config import load_config
 from d3human_tpu_torch.models.texture import MLPTexture3D
 from d3human_tpu_torch.render.texture2d import render_uv
 from d3human_tpu_torch.train.checkpoint import latest_checkpoint, load_params
+from d3human_tpu_torch.utils.backend import device_or_exit
 from d3human_tpu_torch.utils.io import load_obj, save_image, write_obj
 
 
@@ -101,10 +102,8 @@ def bake(args) -> dict:
     and mesh on the host), the texture module and its material, the
     checkpoint read, and the seconds of the unwrap and of the bake on the
     device."""
-    if args.device.startswith("cuda") and not torch.cuda.is_available():
-        raise SystemExit("d3human_tpu_torch.scripts.bake_texture: no CUDA "
-                         "device (pass --device cpu to bake on the CPU)")
-    dev = torch.device(args.device)
+    dev = device_or_exit("d3human_tpu_torch.scripts.bake_texture",
+                         args.device)
     verts, faces = load_obj(args.mesh)
     verts = np.asarray(verts, np.float32)
     faces = np.asarray(faces, np.int32)

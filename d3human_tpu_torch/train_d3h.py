@@ -71,6 +71,7 @@ from d3human_tpu_torch.train.stages import (
 )
 from d3human_tpu_torch.train.step import init_state, make_train_step
 from d3human_tpu_torch.utils import io as mesh_io
+from d3human_tpu_torch.utils.backend import device_or_exit
 from d3human_tpu_torch.utils.metrics import mesh_chamfer
 
 # surface samples per mesh of each PARITY.json Chamfer (the JAX driver's,
@@ -123,6 +124,35 @@ def _synth_gt_mesh(scene, frame: int):
     return v[0], np.asarray(scene.model.faces)
 
 
+def build_lattice(cfg, canon, dev):
+    """(the run's tet lattice, its crop box or None): cropped to the
+    canonical template's box grown by ``geometry.grid_crop`` where that is
+    set (a run trained so has the cropped lattice's parameter shapes),
+    cached under the out dir."""
+    g = cfg.geometry
+    crop_box, crop_tag = None, ""
+    if g.grid_crop > 0:
+        cb = canon.vs_template[0].cpu().numpy()
+        crop_box = (tuple(cb.min(0) - g.grid_crop),
+                    tuple(cb.max(0) + g.grid_crop))
+        crop_tag = f"_crop{g.grid_crop:g}"
+    grid = make_tet_grid(
+        res=g.grid_res, bounds=((-0.5, -0.5, -0.5), (0.5, 0.5, 0.5)),
+        y_offset=g.grid_y_offset, scale=g.grid_scale, crop_box=crop_box,
+        device=dev, cache_path=os.path.join(
+            cfg.out_dir, f"tet_grid_{g.grid_res}{crop_tag}.npz"))
+    return grid, crop_box
+
+
+def texture_module(cfg, dev) -> MLPTexture3D:
+    """The volume texture of ``cfg`` (kd / ks bounds from its render
+    section)."""
+    r = cfg.render
+    return MLPTexture3D(cfg.texture, (list(r.kd_min[:3]) + list(r.ks_min),
+                                      list(r.kd_max[:3]) + list(r.ks_max)),
+                        dev)
+
+
 # the tag of the background draws among the run's generators
 BACKGROUND_TAG = 5
 
@@ -157,15 +187,9 @@ def main(argv: Optional[List[str]] = None) -> int:
             f"processes takes --stages seq only (got {args.stages!r}): run "
             "the stages before it in one process first, into the same "
             "--out-dir")
-    dev = rank_device(args.device)
+    dev = device_or_exit("d3human_tpu_torch.train_d3h",
+                         str(rank_device(args.device)))
     if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise SystemExit(
-                "d3human_tpu_torch.train_d3h: --device cuda but no CUDA "
-                "device is available (pass --device cpu for a CPU run)")
-        # float32 throughout, as the JAX package computes at "highest"
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
         torch.cuda.set_device(dev)
     cfg = load_config(args.config, overrides={"out_dir": args.out_dir})
     split_ckp = None
@@ -263,17 +287,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     # ---- model
     g = cfg.geometry
-    crop_box, crop_tag = None, ""
-    if g.grid_crop > 0:
-        cb = canon.vs_template[0].cpu().numpy()
-        crop_box = (tuple(cb.min(0) - g.grid_crop),
-                    tuple(cb.max(0) + g.grid_crop))
-        crop_tag = f"_crop{g.grid_crop:g}"
-    grid = make_tet_grid(
-        res=g.grid_res, bounds=((-0.5, -0.5, -0.5), (0.5, 0.5, 0.5)),
-        y_offset=g.grid_y_offset, scale=g.grid_scale, crop_box=crop_box,
-        device=dev, cache_path=os.path.join(
-            cfg.out_dir, f"tet_grid_{g.grid_res}{crop_tag}.npz"))
+    grid, crop_box = build_lattice(cfg, canon, dev)
     if crop_box is not None:
         print(f"[grid] crop {grid.dims} of {g.grid_res}^3 "
               f"({grid.n_verts} verts, {grid.n_tets} tets)", flush=True)
@@ -306,9 +320,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             save_params(ncache, gparams["nonrigid"])
 
     r = cfg.render
-    tex = MLPTexture3D(cfg.texture, (list(r.kd_min[:3]) + list(r.ks_min),
-                                     list(r.kd_max[:3]) + list(r.ks_max)),
-                       dev)
+    tex = texture_module(cfg, dev)
     perceptual, perc_params = make_perceptual(cfg.loss.perceptual_backbone,
                                               dev, cfg.loss.perceptual_npz)
     params = {

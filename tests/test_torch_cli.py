@@ -278,6 +278,88 @@ def test_resumed_run_equals_uninterrupted_bit_for_bit(cli_run, tmp_path,
         np.testing.assert_array_equal(b[k], a[k], err_msg=k)
 
 
+def test_run_cut_inside_split_equals_uninterrupted_bit_for_bit(
+        cli_run, tmp_path, monkeypatch):
+    """The init and split stages (4 + 4 iterations, a state every 2):
+    once straight through, once cut off as the split's fourth step starts
+    and resumed from the split's ``state_2.npz``. The split's final states
+    are equal bit for bit."""
+    src = cli_run["out_dir"]
+    cfg = json.load(open(os.path.join(os.path.dirname(src), "config.json")))
+    cfg["stages"]["save_checkpoint_interval"] = 2
+    cfg["stages"]["split_epoch"] = 2000
+    cfg_path = str(tmp_path / "config.json")
+    json.dump(cfg, open(cfg_path, "w"))
+    finals = []
+    for name, cut in (("straight", None), ("cut", 7)):
+        out = tmp_path / name
+        shutil.copytree(os.path.join(src, "cache"), out / "cache")
+        argv = ["--config", cfg_path, "--out-dir", str(out), "--synthetic",
+                "--synthetic-frames", "2", "--stages", "init,split",
+                "--iters-scale", "0.002", "--device", "cpu"]
+        if cut is not None:
+            _run(argv, monkeypatch, stop_at=cut)
+            assert sorted(os.listdir(out / "split_cloth0" / "ckp")) == [
+                "state_2.npz"]
+            argv = argv + ["--resume"]
+        _run(argv)
+        with np.load(out / "split_cloth0" / "ckp" / "state_3.npz") as z:
+            finals.append({k: z[k] for k in z.files})
+    a, b = finals
+    assert a.keys() == b.keys() and any("['opt']['mu']" in k for k in a)
+    for k in a:
+        np.testing.assert_array_equal(b[k], a[k], err_msg=k)
+
+
+def test_chip_smoke_cli_cut_rehearsal(cli_run, tmp_path):
+    """chip_smoke.py's ``cli_cut`` phase: the cli phase's command cut as
+    the split's second step starts, then resumed; every final checkpoint
+    leaf, seq delta and ply and every PARITY.json number bit for bit the
+    straight run's (checked inside the phase)."""
+    import chip_smoke
+
+    out = chip_smoke.phase_cli_cut("tiny", "cpu", cli_run,
+                                   str(tmp_path / "cut"))
+    st = cli_run["stages"]
+    assert out["cut_at_step"] == (st["split_smpl"]["iterations"]
+                                  + st["init"]["iterations"] + 1)
+    assert out["bitwise"] and out["checkpoints"] >= 3
+    assert out["deltas"] == out["plys"] == 2
+
+
+def test_chip_smoke_scorers_rehearsal(cli_run, tmp_path):
+    """chip_smoke.py's ``scorers`` phase on the CLI run: eval_parity's
+    entries, score_seq_partial equal to the CLI's own seq entry and
+    partial on one frame less (checked inside the phase); PARITY.json is
+    left as the CLI wrote it."""
+    import chip_smoke
+
+    ppath = os.path.join(cli_run["out_dir"], "PARITY.json")
+    before = open(ppath).read()
+    out = chip_smoke.phase_scorers("tiny", "cpu", cli_run,
+                                   str(tmp_path / "scorers"))
+    assert open(ppath).read() == before
+    assert set(out["multiview"]) == {"split_smpl", "init", "split", "seq"}
+    assert out["seq_partial"]["partial"]["n_frames"] == 1
+    assert out["seq_partial"]["full"]["n_frames"] == 2
+
+
+def test_chip_smoke_determinism_rehearsal():
+    """chip_smoke.py's ``determinism`` phase on the tiny scene: three init,
+    split and seq steps twice in the default mode and once under
+    ``deterministic()``, bit for bit; a validation half twice, bit for
+    bit."""
+    import chip_smoke
+
+    sc = chip_smoke.build_scene("tiny", "cpu", seed_steps=30)
+    chip_smoke.add_seq(sc, "tiny")
+    out = chip_smoke.phase_determinism(sc, "cpu")
+    for stage in ("init", "split", "seq"):
+        assert out[stage]["bitwise"] and not out[stage]["nondeterministic_ops"]
+        assert len(out[stage]["total"]) == chip_smoke.DET_STEPS
+    assert out["validate"]["bitwise"] and out["validate"]["buffers"]
+
+
 def test_capture_resumed_run_equals_uninterrupted_bit_for_bit(
         capture_run, tmp_path, monkeypatch):
     """As above on the capture: the backgrounds are drawn from (seed,

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from d3human_tpu_torch.ops import compaction, raster_resolve, scatter
+from d3human_tpu_torch.ops import compaction, raster_resolve, scan, scatter
 from d3human_tpu_torch.ops.rasterizer import bin_faces
 
 
@@ -310,3 +310,23 @@ def test_cuda_small_seq_tick_matches_cpu(cuda_device):
 
     cpu, gpu = chip_smoke.small_scenes(seed_steps=0)
     chip_smoke.compare_small_tick(cpu, gpu, "seq")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n", [(1, 1), (1, 2047), (1, 2048), (1, 2049),
+                                    (1, 786432), (256, 256), (3, 5000)])
+def test_cuda_scan_equals_cumsum_and_repeats(cuda_device, rows, n):
+    """The fixed-order scan against the CPU's torch.cumsum (double
+    accumulation) within 1e-6 of the largest prefix, bit for bit across
+    calls, two launches a call; vectors and rows, around one tile."""
+    x = torch.rand((rows, n), generator=torch.Generator().manual_seed(n))
+    x = x[0] if rows == 1 else x
+    fn = scan.inclusive_scan
+    before = (fn.calls, fn.launches)
+    got = fn(x.cuda())
+    assert (fn.calls - before[0], fn.launches - before[1]) == (
+        1, scan.LAUNCHES)
+    want = torch.cumsum(x.double(), -1)
+    err = float((got.cpu().double() - want).abs().max())
+    assert err <= 1e-6 * float(want.abs().max()), err
+    assert torch.equal(fn(x.cuda()), got)

@@ -183,7 +183,8 @@ def test_chip_smoke_scene_rehearsal(tmp_path):
     chip_smoke.phase_small_pbr(sc, sc)
     pbr = chip_smoke.phase_pbr(sc, "cpu")
     assert set(pbr["launches"]) == {"first_k_indices", "coo_scatter_add",
-                                    "resolve_tiles", "resolve_tiles_peel"}
+                                    "resolve_tiles", "resolve_tiles_peel",
+                                    "inclusive_scan"}
     # the recorder saw every kernel's wrapper on the path
     assert set(pbr["inputs"]) == {"first_k_indices", "coo_scatter_add",
                                   "resolve_tiles_indexed"}
