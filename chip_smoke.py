@@ -169,6 +169,31 @@ object per line (``t``: the script's seconds when the phase ended):
                of the SMPL template and a material file's round trip
   aux_kernels  the kernels at the aux calls' recorded inputs; the rows'
                "aux" entries
+  ref_grid     the scene's cropped lattice as an unstructured grid (its
+               verts and tets, unique edges from the sort: only the edge
+               order differs) against the lattice, on copies of the
+               parameters: crossing-edge, valid-tet, face and covered-pixel
+               counts exactly equal; INIT_STEPS init and SPLIT_STEPS split
+               steps on each from the same state and generator, losses
+               within rel 1e-5 and gradients within rel-L2 1e-4 a leaf,
+               counters exact; the lattice's round trip through a
+               reference-format npz (vertices / 1.2 with y + 0.1919,
+               indices) read by load_reference_tet_grid: tets and edges
+               equal, positions within 1e-7. Then (the scenes above freed)
+               the uncropped 128^3 lattice, the reference file's extent
+               (2,146,689 verts, 12,582,912 tets), built with the crop off
+               (the SDF fitted to the capsule by REF_SEED_STEPS Adam
+               steps), written and read back the same way (host seconds of the
+               sort-based unique edges), INIT_STEPS init steps and one
+               split step: step ms, peak memory, counts inside the
+               capacities; kernel launches and calls of both runs' steps;
+               on each grid the scatter at sdf_reg_loss's two
+               endpoint-gather backwards (N = the edges, C = 1) held to
+               its plain version as in the kernels phase
+  ref_grid_kernels, ref_grid_uncropped_kernels  the kernels at the two
+               runs' recorded calls (first_k on the unstructured masks),
+               as in cli_kernels; the rows' "ref_grid" and
+               "ref_grid_uncropped" entries, with the endpoint backwards
   gt_targets   the synthetic ground truth at 1080^2 (the scenes above are
                freed first): frame_target of 4 frames through the oracle
                rasterizer (plain PyTorch by design: no kernel), ms per
@@ -333,12 +358,13 @@ SCALES = {
 }
 
 
-def build_scene(scale: str, device: str, seed_steps: int):
+def build_scene(scale: str, device: str, seed_steps: int, crop: bool = True):
     """Config, model, texture, perceptual, targets and the train states of
     the bench scene, from the port alone. ``seed_steps`` Adam steps fit the
     SDF MLP to an analytic capsule so the lattice holds a real surface; the
     mSDF is cut at mid height so both split halves carry faces. The init
-    and the split state share one parameter tree (steps update in place)."""
+    and the split state share one parameter tree (steps update in place).
+    ``crop`` False keeps the whole lattice (the reference grid's extent)."""
     import torch
 
     from d3human_tpu_torch.config import (
@@ -365,11 +391,11 @@ def build_scene(scale: str, device: str, seed_steps: int):
         optim=OptimConfig(clip_max_norm=1.0, init_lr_scale=0.1),
     )
     scene = make_scene(resolution=(64, 64), n_frames=2, device=device)
-    crop = template_crop_box(scene.canon.vs_template[0].cpu().numpy(),
-                             cfg.geometry.grid_crop)
+    box = template_crop_box(scene.canon.vs_template[0].cpu().numpy(),
+                            cfg.geometry.grid_crop) if crop else None
     grid = make_tet_grid(res=cfg.geometry.grid_res,
                          bounds=((-0.6, -0.8, -0.4), (0.6, 0.8, 0.4)),
-                         y_offset=0.0, scale=1.0, crop_box=crop,
+                         y_offset=0.0, scale=1.0, crop_box=box,
                          device=device)
     model = GeometryModel(cfg, grid, scene.deformer, scene.canon)
     gparams = model.init_params(torch.Generator().manual_seed(0),
@@ -4302,6 +4328,361 @@ def phase_cli_parallel(scale: str, device: str, cli_root: str,
     return out
 
 
+# ---------------------------------------------------------------- ref_grid
+
+REF_DIR = "d3human_tpu_torch/build/smoke_ref_grid"
+REF_LOSS_TOL = 1e-5      # a step's losses, unstructured grid against lattice
+REF_GRAD_TOL = 1e-4      # a step's gradients, rel-L2 a leaf
+REF_POS_TOL = 1e-7       # positions after a reference-format file's round trip
+REF_SEED = 13            # the generators of the ref_grid steps
+# Adam steps fitting the uncropped lattice's SDF to the capsule: a quarter
+# of SEED_STEPS, since a full-batch step there takes 3.2x the vertices;
+# the fit's final loss is reported (pretrain_loss)
+REF_SEED_STEPS = 100
+# the steps a stage of the ref_grid comparison takes
+REF_STEPS = (("init", INIT_STEPS), ("split", SPLIT_STEPS))
+
+
+def on_grid(sc: dict, grid) -> dict:
+    """The scene with its model on ``grid`` and fresh init and split states
+    (no warm-up, so the first step moves the parameters) on a copy of its
+    parameters."""
+    from d3human_tpu_torch.models.geometry import GeometryModel
+    from d3human_tpu_torch.train.step import init_state
+
+    cfg, m = no_warmup(sc["cfg"]), sc["model"]
+    params = clone_tree(sc["params"])
+    return dict(sc, cfg=cfg, params=params,
+                model=GeometryModel(cfg, grid, m.deformer, m.canon),
+                state=init_state("init", params, cfg),
+                split_state=init_state("split", params, cfg))
+
+
+def grid_counts(sc: dict) -> dict:
+    """The extraction's counts on the scene's parameters: crossing edges,
+    sign-mixed tets, faces of the init mesh and of each split half, and
+    the pixels the init mesh covers at the training resolution."""
+    import torch
+
+    from d3human_tpu_torch.ops.rasterizer import rasterize, xfm_points
+
+    g, pose, model = sc["params"]["geometry"], sc["params"]["pose"], \
+        sc["model"]
+    with torch.no_grad():
+        m = model.get_meshes(g, pose, 0)
+        cloth, body = model.get_meshes_pair(g, pose, 0)
+        rast = rasterize(xfm_points(m.verts_posed, sc["target"]["mvp"]),
+                         m.mesh.faces, m.mesh.face_valid,
+                         tuple(sc["cfg"].render.train_res),
+                         **(sc["raster_opts"] or {}))
+    return dict(n_cross=int(m.mesh.n_cross),
+                n_valid_tets=int(m.mesh.n_valid_tets),
+                faces=int(m.mesh.face_valid.sum()),
+                cloth_faces=int(cloth.mesh.face_valid.sum()),
+                body_faces=int(body.mesh.face_valid.sum()),
+                covered_pixels=int((rast.tri_id > 0).sum()))
+
+
+def check_capacity(where: str, m: dict, cfg) -> None:
+    """A step's counts inside the static capacities: crossing edges and
+    sign-mixed tets of each half, covered pixels and AA pairs."""
+    g = cfg.geometry
+    for k, v in m.items():
+        if k.endswith("n_cross"):
+            check(0 < v <= g.max_verts, f"{where}: {k} {v} of {g.max_verts}")
+        elif k.endswith("n_valid_tets"):
+            check(0 < v <= g.max_tets, f"{where}: {k} {v} of {g.max_tets}")
+        elif k.endswith(("cap_cov", "cap_aa")):
+            check(v <= 1.0, f"{where}: {k} {v}")
+
+
+def ref_stepper(sc: dict, stage: str, grads: bool = True):
+    """step() -> one training step of ``stage`` from the scene's state
+    (the generator seeded REF_SEED once): the losses, with ``grads`` a copy
+    of the gradients the optimizer was given, and the step's ms (host
+    clock around synchronised work); counts checked inside the
+    capacities."""
+    import torch
+
+    step_fn = stage_step_fn(sc, stage)
+    dev = sc["model"].grid.verts.device
+    gen = torch.Generator(device=dev).manual_seed(REF_SEED)
+    given = []
+    n = [0]
+
+    def step():
+        state = sc[STATE_KEY[stage]]
+        opt_step = state.opt.step
+
+        def recorded(params, g):
+            if grads:
+                given.append({k: v.detach().clone() for k, v in g.items()
+                              if v is not None})
+            opt_step(params, g)
+
+        state.opt.step = recorded
+        try:
+            (state, m), s = timed(dev, lambda: step_fn(state, sc["target"],
+                                                       gen))
+        finally:
+            del state.opt.step
+        m = scalars(m)
+        where = f"ref_grid {stage} {n[0]}"
+        check_step_metrics(stage, m, where)
+        check_capacity(where, m, sc["cfg"])
+        n[0] += 1
+        return dict(losses=m, ms=s * 1e3,
+                    grads=given.pop() if grads else None)
+
+    return step
+
+
+def add_counts(launches: dict, calls: dict, counts: dict) -> None:
+    """Adds ``read_counts()``'s launches and calls to the two totals."""
+    for k, n in counts.items():
+        if k != "calls":
+            launches[k] = launches.get(k, 0) + n
+            calls[k] = calls.get(k, 0) + counts["calls"][k]
+
+
+def follow(dst, src) -> None:
+    """``dst``'s training state set to ``src``'s: parameters, Adam moments
+    and counts (in place where they exist)."""
+    import torch
+
+    from d3human_tpu_torch.train.optim import named_leaves
+
+    with torch.no_grad():
+        for (k, a), (j, b) in zip(named_leaves(dst.params),
+                                  named_leaves(src.params)):
+            check(k == j, f"follow: {k} != {j}")
+            a.copy_(b)
+    dst.opt.mu = {k: v.clone() for k, v in src.opt.mu.items()}
+    dst.opt.nu = {k: v.clone() for k, v in src.opt.nu.items()}
+    dst.opt.count, dst.step = src.opt.count, src.step
+
+
+def compare_ref_step(where: str, w: dict, g: dict, worst: dict) -> None:
+    """One step on the unstructured grid (``g``) against the same step on
+    the lattice (``w``): the counters exactly equal, every loss within
+    REF_LOSS_TOL, every gradient leaf within REF_GRAD_TOL rel-L2; the
+    largest errors kept in ``worst``."""
+    check(set(w["losses"]) == set(g["losses"]), f"{where}: keys differ")
+    for k, a in w["losses"].items():
+        b = g["losses"][k]
+        if k.endswith(EXACT + ("cap_cov", "cap_aa")):
+            check(a == b, f"{where}: {k} {b} != {a}")
+        elif k == "total" or k.endswith("loss"):
+            err = abs(b - a) / abs(a) if a else abs(b)
+            check(err <= REF_LOSS_TOL, f"{where}: {k} {b} vs {a}")
+            if err >= worst["loss"]:
+                worst.update(loss=err, loss_key=k)
+    check(set(w["grads"]) == set(g["grads"]),
+          f"{where}: gradient leaves differ")
+    for k, a in w["grads"].items():
+        err = rel_l2(g["grads"][k], a) if bool(a.any()) else float(
+            g["grads"][k].abs().max())
+        check(err <= REF_GRAD_TOL, f"{where}: gradient {k} rel-L2 {err}")
+        if err >= worst["grad"]:
+            worst.update(grad=err, grad_leaf=k)
+
+
+def check_endpoint_scatter(label: str, grid) -> dict:
+    """On the card: the scatter at ``sdf_reg_loss``'s two endpoint-gather
+    backwards on an unstructured grid (N = its edges, C = 1, its vertices
+    as rows; a call site the recorder may file under a bigger gather's
+    backward), on random rows, held to its plain version as in the kernels
+    phase; timed beside ``index_add_``, not held to it (no hot row).
+    {call: report}; on the CPU none."""
+    import torch
+
+    dev = grid.verts.device
+    if dev.type != "cuda":
+        return {}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    e = grid.edges[: grid.n_edges]
+    live = torch.ones((grid.n_edges,), dtype=torch.bool, device=dev)
+    return {f"sdf_reg_loss endpoint {i} bwd": check_scatter(
+        f"{label} sdf_reg_loss endpoint {i} bwd", e[:, i], live, 1,
+        grid.n_verts, False, gen, faster=False) for i in (0, 1)}
+
+
+@contextlib.contextmanager
+def timed_unique_edges():
+    """While active, the host seconds of each ``_unique_edges_generic``
+    call (the sort-based unique edges of an unstructured grid) are
+    appended to the yielded list."""
+    from d3human_tpu_torch.ops import tet_grid
+
+    fn, seconds = tet_grid._unique_edges_generic, []
+
+    def timed_fn(tets):
+        t0 = time.perf_counter()
+        out = fn(tets)
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    tet_grid._unique_edges_generic = timed_fn
+    try:
+        yield seconds
+    finally:
+        tet_grid._unique_edges_generic = fn
+
+
+def reference_round_trip(lattice, path: str) -> tuple:
+    """(the grid read back, its load seconds, unique-edge seconds, largest
+    position error): ``lattice`` written as a reference-format npz at
+    ``path`` and read through ``load_reference_tet_grid``; its tets the
+    lattice's, positions within REF_POS_TOL."""
+    import torch
+
+    from d3human_tpu_torch.ops import tet_grid as tg
+
+    dev = lattice.verts.device
+    tg.save_reference_tet_grid(path, lattice.verts.cpu().numpy(),
+                               lattice.tets.cpu().numpy())
+    with timed_unique_edges() as unique_s:
+        grid, load_s = timed(dev, lambda: tg.load_reference_tet_grid(
+            path, device=dev))
+    err = float((grid.verts - lattice.verts).abs().max())
+    check(grid.dims is None and grid.vert_dims is None,
+          "ref_grid: a reference-format grid with dims")
+    check(torch.equal(grid.tets, lattice.tets),
+          "ref_grid: the file's tets differ from the lattice's")
+    check(err <= REF_POS_TOL, f"ref_grid: positions moved by {err}")
+    return grid, load_s, unique_s[0], err
+
+
+def phase_ref_grid(sc: dict, root: str) -> dict:
+    """The scene's cropped lattice as an unstructured grid (its verts and
+    tets, edges from the sort: only the edge order differs) against the
+    lattice itself, on copies of the scene's parameters: the extraction's
+    counts exactly equal, then INIT_STEPS init and SPLIT_STEPS split steps
+    on each, every step from one state with one generator's draws, losses
+    within REF_LOSS_TOL and gradients within REF_GRAD_TOL; the lattice's
+    round trip through a
+    reference-format file under ``root`` (edges equal to the in-memory
+    grid's). The unstructured steps' kernel counts and calls are the
+    path's; their kernel inputs are recorded by call site."""
+    import torch
+
+    from d3human_tpu_torch.ops import tet_grid as tg
+
+    lattice = sc["model"].grid
+    dev = lattice.verts.device
+    with timed_unique_edges() as unique_s:
+        grid = tg.unstructured(lattice)
+    check(grid.n_edges == lattice.n_edges,
+          f"ref_grid: {grid.n_edges} unique edges, the lattice has "
+          f"{lattice.n_edges}")
+    loaded, load_s, file_unique_s, pos_err = reference_round_trip(
+        lattice, os.path.join(root, "cropped.npz"))
+    check(torch.equal(loaded.edges, grid.edges)
+          and torch.equal(loaded.tet_edges, grid.tet_edges),
+          "ref_grid: the file's edges differ from the in-memory grid's")
+    del loaded
+    s_sc, u_sc = on_grid(sc, lattice), on_grid(sc, grid)
+    counts = grid_counts(s_sc)
+    got = grid_counts(u_sc)
+    check(got == counts, f"ref_grid: counts {got} != the lattice's {counts}")
+    check(all(v > 0 for v in counts.values()), f"ref_grid: counts {counts}")
+    launches, calls, steps, recorded = {}, {}, {}, []
+    for stage, n in REF_STEPS:
+        lattice_step = ref_stepper(s_sc, stage)
+        grid_step = ref_stepper(u_sc, stage)
+        worst = dict(loss=0.0, loss_key=None, grad=0.0, grad_leaf=None)
+        ms, lattice_ms, c, cl = [], [], {}, {}
+        for i in range(n):
+            w = lattice_step()
+            # the unstructured step from the lattice step's starting state
+            # (followed after each step), so that each step compares the
+            # two grids and not Adam's amplification of last-bit
+            # differences, which divides each gradient by its own size
+            reset_counts()
+            with recording_kernel_inputs() as seen:
+                g = grid_step()
+            sync(dev)
+            add_counts(c, cl, read_counts())
+            recorded.append(seen)
+            compare_ref_step(f"ref_grid {stage} step {i}", w, g, worst)
+            follow(u_sc[STATE_KEY[stage]], s_sc[STATE_KEY[stage]])
+            ms.append(g["ms"])
+            lattice_ms.append(w["ms"])
+        if dev.type == "cuda":
+            check_path_counts(f"ref_grid {stage}", c, cl, STEP_CALLS[stage],
+                              n)
+        add_counts(launches, calls, dict(c, calls=cl))
+        steps[stage] = dict(worst, ms=ms, lattice_ms=lattice_ms,
+                            losses=g["losses"])
+    scatter = check_endpoint_scatter("ref_grid", grid)
+    out = dict(part="cropped", grid=dict(
+        n_verts=grid.n_verts, n_tets=grid.n_tets, n_edges=grid.n_edges,
+        lattice_dims=lattice.dims, unique_edges_s=unique_s[0]),
+        round_trip=dict(load_s=load_s, unique_edges_s=file_unique_s,
+                        max_pos_err=pos_err, tolerance=REF_POS_TOL),
+        counts=counts, steps=steps, endpoint_scatter=scatter,
+        tolerance=dict(loss_rel=REF_LOSS_TOL, grad_rel_l2=REF_GRAD_TOL,
+                       counts="exact"))
+    emit("ref_grid", **out)
+    return dict(out, launches=launches, calls=calls,
+                inputs=merge_recorded(*recorded))
+
+
+def phase_ref_grid_uncropped(scale: str, device: str, seed_steps: int,
+                             root: str) -> dict:
+    """The whole lattice, as the reference's own grid file holds it: the
+    scene built with the crop off (its field seeded as ``build_scene``
+    seeds it), written as a reference-format npz under ``root``, read back
+    through ``load_reference_tet_grid`` (host seconds of the sort-based
+    unique edges), then INIT_STEPS init steps and one split step on it:
+    step ms, peak memory, the counts inside the capacities. Kernel counts
+    reset just before the steps and read just after; the steps' kernel
+    inputs are recorded by call site."""
+    sc, scene_s = timed(device, lambda: build_scene(scale, device,
+                                                    seed_steps, crop=False))
+    grid, load_s, unique_s, pos_err = reference_round_trip(
+        sc["model"].grid, os.path.join(root, "uncropped.npz"))
+    rsc = on_grid(sc, grid)
+    del sc
+    gc.collect()
+    if device == "cuda":
+        import torch
+
+        torch.cuda.empty_cache()
+    reset_peak(device)
+    with recording_kernel_inputs() as inputs:
+        reset_counts()
+        step = ref_stepper(rsc, "init", grads=False)
+        init = [step() for _ in range(INIT_STEPS)]
+        split = [ref_stepper(rsc, "split", grads=False)()]
+        sync(device)
+        launches = read_counts()
+    calls = launches.pop("calls")
+    if device == "cuda":
+        check_path_counts("ref_grid uncropped init + split", launches, calls,
+                          {k: INIT_STEPS * n + STEP_CALLS["split"][k]
+                           for k, n in STEP_CALLS["init"].items()}, 1)
+    peak = peak_gib(device)
+    scatter = check_endpoint_scatter("ref_grid_uncropped", grid)
+    last = init[-1]["losses"]
+    out = dict(part="uncropped", grid=dict(
+        n_verts=grid.n_verts, n_tets=grid.n_tets, n_edges=grid.n_edges,
+        load_s=load_s, unique_edges_s=unique_s, max_pos_err=pos_err),
+        scene_s=scene_s, pretrain_loss=rsc["pretrain_loss"],
+        init_ms=[r["ms"] for r in init], split_ms=[r["ms"] for r in split],
+        peak_mem_gib=peak,
+        counts={k: last[k] for k in ("n_cross", "n_valid_tets", "cap_cov")},
+        split_counts={k: split[0]["losses"][k] for k in (
+            "cloth_n_cross", "cloth_n_valid_tets", "body_n_cross",
+            "body_n_valid_tets")},
+        capacity=dict(max_verts=rsc["cfg"].geometry.max_verts,
+                      max_tets=rsc["cfg"].geometry.max_tets),
+        losses=last, split_losses=split[0]["losses"],
+        endpoint_scatter=scatter)
+    emit("ref_grid", **out)
+    return dict(out, launches=launches, calls=calls, inputs=dict(inputs))
+
+
 def _tensors(x):
     import torch
 
@@ -4390,10 +4771,25 @@ def main() -> int:
         os.path.dirname(os.path.abspath(__file__)), AUX_DIR))
     phase_path_kernels(rows, aux.pop("inputs"), "aux")
     paths["aux"] = aux
+    ref_root = os.path.join(here, REF_DIR)
+    ref = phase_ref_grid(sc, ref_root)
     # the CLI builds everything anew: the scenes of the phases above go
     del sc
     gc.collect()
     torch.cuda.empty_cache()
+    ref_whole = phase_ref_grid_uncropped("full", "cuda", REF_SEED_STEPS,
+                                         ref_root)
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_name = {r["name"]: r for r in rows}
+    for key, res in (("ref_grid", ref), ("ref_grid_uncropped", ref_whole)):
+        phase_path_kernels(rows, res.pop("inputs"), key)
+        by_name["coo_scatter_add"][key].update({
+            call: dict(kernel_summary(r), shape=(
+                f"N={r['N']} C={r['C']} out={r['out_rows']}"))
+            for call, r in res["endpoint_scatter"].items()})
+    paths["ref_grid"] = {w: {k: ref[w][k] + ref_whole[w][k] for k in ref[w]}
+                         for w in ("launches", "calls")}
     phase_gt_targets("full", "cuda")
     cli = phase_cli("full", "cuda", os.path.join(
         os.path.dirname(os.path.abspath(__file__)), CLI_DIR))
@@ -4426,7 +4822,8 @@ def main() -> int:
         # init and split steps with the MobileNetV2 backbone, the API-only
         # modules, the frame-parallel seq runner, the DP steps, the CLI's
         # first run on the synthetic scene, the two scorers on it, its
-        # --seq-parallel run and its run on the exported capture); first_k
+        # --seq-parallel run and its run on the exported capture, and the
+        # steps on the reference-format grids); first_k
         # counts its count and write launches, the scatter each launch of
         # its two sum kernels, and their calls are the calls of the wrapper
         for what in ("launches", "calls"):
@@ -4457,6 +4854,8 @@ def main() -> int:
          scorers={"eval_parity": 1, "score_seq_partial": 2},
          cli_parallel={"runs": 1, "scale": "full"},
          capture={"runs": 1, "scale": "full"},
+         ref_grid={"cropped": {s: n for s, n in REF_STEPS},
+                   "uncropped": {"init": INIT_STEPS, "split": 1}},
          launches={k: v["launches"] for k, v in paths.items()},
          calls={k: v["calls"] for k, v in paths.items()})
     if own_group:

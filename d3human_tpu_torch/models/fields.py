@@ -148,3 +148,15 @@ class DeformMLP(MLP):
         code = pose_code.reshape(self.pose_dim).expand(
             *x.shape[:-1], self.pose_dim)
         return super().apply(params, x, extra=code)
+
+
+def sdf_gradient(mlp: MLP, params: Params, pts: torch.Tensor) -> torch.Tensor:
+    """The field's input gradient at pts [..., 3], with its graph
+    (``create_graph``), so a loss on it differentiates into the weights and
+    into ``pts`` where they take gradients (the eikonal loss's double
+    backward)."""
+    with torch.enable_grad():
+        x = pts if pts.requires_grad else pts.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(mlp.apply(params, x).sum(), x,
+                                   create_graph=True)
+    return g

@@ -62,6 +62,18 @@ def batch_rigid_transform(rot_mats: torch.Tensor, joints: torch.Tensor,
     return posed_joints, rel
 
 
+def vertices2joints(J_regressor: torch.Tensor,
+                    vertices: torch.Tensor) -> torch.Tensor:
+    """J_regressor [J, V] x vertices [B, V, 3] -> joints [B, J, 3]."""
+    return torch.einsum("bvk,jv->bjk", vertices, J_regressor)
+
+
+def blend_shapes(betas: torch.Tensor,
+                 shape_disps: torch.Tensor) -> torch.Tensor:
+    """betas [B, L] x shape_disps [V, 3, L] -> [B, V, 3]."""
+    return torch.einsum("bl,vkl->bvk", betas, shape_disps)
+
+
 def lbs(betas: torch.Tensor, pose: torch.Tensor, v_template: torch.Tensor,
         shapedirs: torch.Tensor, posedirs: torch.Tensor,
         J_regressor: torch.Tensor, parents: Tuple[int, ...],
@@ -72,8 +84,8 @@ def lbs(betas: torch.Tensor, pose: torch.Tensor, v_template: torch.Tensor,
     B = max(betas.shape[0], pose.shape[0])
     if v_template.dim() == 2:
         v_template = v_template[None]
-    v_shaped = v_template + torch.einsum("bl,vkl->bvk", betas, shapedirs)
-    J = torch.einsum("bvk,jv->bjk", v_shaped, J_regressor)
+    v_shaped = v_template + blend_shapes(betas, shapedirs)
+    J = vertices2joints(J_regressor, v_shaped)
     if joint_offset is not None:
         J = J + joint_offset
     chain_joints = J + locator_offset if locator_offset is not None else J

@@ -67,3 +67,9 @@ def load_lib(name: str) -> ctypes.CDLL:
         return ctypes.CDLL(str(path))
     except OSError as e:
         raise BuildError(f"cannot load {path}: {e}") from e
+
+
+def build_framecache(force: bool = False) -> Path:
+    """``build_lib("framecache")``: the frame cache's library, built when
+    it is missing or older than its source (or with ``force``)."""
+    return build_lib("framecache", force=force)

@@ -8,7 +8,10 @@ over the query points.
     d, cp, face = sdf.query(points, return_closest=True)
 
 The library is built at first use (``native.build_lib``); a failure to
-build or load it raises ``native.BuildError``.
+build or load it raises ``native.BuildError``. ``mesh_sdf_host`` is the
+one-shot query; ``available()`` says whether the library can be built
+and loaded (False only for a ``BuildError``: a missing or failing
+toolchain).
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from typing import Tuple
 
 import numpy as np
 
-from d3human_tpu_torch.native import load_lib
+from d3human_tpu_torch.native import BuildError, load_lib
 
 _lib = None
 _SIGN_MODE = {"neg_inside": 0, "pos_inside": 1, "unsigned": 2}
@@ -85,3 +88,21 @@ class MeshSDF:
         if h and _lib is not None:
             _lib.msdf_free(h)
             self._h = None
+
+
+def mesh_sdf_host(points: np.ndarray, verts: np.ndarray, faces: np.ndarray,
+                  sign_convention: str = "neg_inside") -> np.ndarray:
+    """One query of the engine: the signed distance [P] of points [P, 3]
+    to the mesh (numpy in and out). A failed build raises ``BuildError``;
+    ``ops/mesh_sdf.py:mesh_sdf_host`` is the entry point that answers with
+    the tensor op instead."""
+    return MeshSDF(verts, faces).query(points, sign_convention)
+
+
+def available() -> bool:
+    """True when the library is built or can be, and loads."""
+    try:
+        _load()
+    except BuildError:
+        return False
+    return True

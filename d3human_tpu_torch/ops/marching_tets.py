@@ -14,6 +14,12 @@ convergence.
 The two compactions run ``first_k_indices`` (CUDA kernel on the card); the
 endpoint and polygon-cycle row gathers are ``gather_rows`` (scatter kernel
 in the backward); the corner-mark count runs ``coo_scatter_add``.
+
+On a lattice (``grid.dims`` set) the crossing flags, the sign-mixed flags
+and ``sdf_reg_loss``'s endpoint pairs are shifted slices of the vertex
+volume; on an unstructured grid (``load_reference_tet_grid``) they are
+gathers over ``grid.edges`` and ``grid.tets``, the loss's through
+``gather_rows``.
 """
 
 from __future__ import annotations
@@ -187,6 +193,19 @@ def _structured_sdf_pairs(sdf3: torch.Tensor):
     return torch.cat(pa), torch.cat(pb)
 
 
+def _gathered_crossing(occ: torch.Tensor, grid: TetGrid) -> torch.Tensor:
+    """Edge-crossing flags of an unstructured grid's edges (bool gathers,
+    no gradient)."""
+    e = grid.edges[: grid.n_edges]
+    return occ.index_select(0, e[:, 0]) != occ.index_select(0, e[:, 1])
+
+
+def _gathered_valid_tets(occ: torch.Tensor, grid: TetGrid) -> torch.Tensor:
+    """Sign-mixed flags of an unstructured grid's tets."""
+    s = occ.index_select(0, grid.tets.reshape(-1)).view(-1, 4).sum(-1)
+    return (s > 0) & (s < 4)
+
+
 def _stable_denom(d: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """sign(d) * (|d| + eps), zeros -> eps."""
     s = torch.where(d >= 0, 1.0, -1.0)
@@ -203,8 +222,12 @@ def _gshell_level1(grid: TetGrid, pos: torch.Tensor, sdf: torch.Tensor,
 
     # ---- level 1: vertices on SDF-crossing edges
     occ = sdf > 0
-    occ3 = occ.reshape(grid.vert_dims)
-    crossing = _structured_crossing(occ3)
+    structured = grid.dims is not None
+    if structured:
+        occ3 = occ.reshape(grid.vert_dims)
+        crossing = _structured_crossing(occ3)
+    else:
+        crossing = _gathered_crossing(occ, grid)
     vert_slots = first_k_indices(crossing, MV, E)
     vert_ok = vert_slots < E
     vs = vert_slots.long()
@@ -229,7 +252,8 @@ def _gshell_level1(grid: TetGrid, pos: torch.Tensor, sdf: torch.Tensor,
 
     # ---- level 1: sign-mixed tets -> cases + faces
     T = grid.n_tets
-    valid_tet = _structured_valid_tets(occ3)
+    valid_tet = (_structured_valid_tets(occ3) if structured
+                 else _gathered_valid_tets(occ, grid))
     tet_slots = first_k_indices(valid_tet, MT, T)
     tet_ok = tet_slots < T
     tet_slots_c = tet_slots.clamp(0, T - 1).long()
@@ -367,9 +391,17 @@ def gshell_extract_pair(grid: TetGrid, pos: torch.Tensor, sdf: torch.Tensor,
 
 
 def sdf_reg_loss(sdf: torch.Tensor, grid: TetGrid) -> torch.Tensor:
-    """Sign-flip BCE regularizer over the lattice edges whose endpoint
-    SDFs disagree in sign (masked mean)."""
-    a, b = _structured_sdf_pairs(sdf.reshape(grid.vert_dims))
+    """Sign-flip BCE regularizer over the grid edges whose endpoint SDFs
+    disagree in sign (masked mean). On an unstructured grid the endpoints
+    are row gathers whose backward is the scatter kernel (no float atomics;
+    the JAX package indexes, which agrees up to the order of the sums)."""
+    if grid.dims is not None:
+        a, b = _structured_sdf_pairs(sdf.reshape(grid.vert_dims))
+    else:
+        e = grid.edges[: grid.n_edges]
+        col = sdf.reshape(-1, 1)
+        a = gather_rows(col, e[:, 0])[:, 0]
+        b = gather_rows(col, e[:, 1])[:, 0]
     mask = torch.sign(a) != torch.sign(b)
 
     def bce(logit, target):

@@ -6,6 +6,11 @@ main diagonal, unique edges stored class-major over 7 direction classes
 and the crop to a box around the canonical template. The arrays equal the
 JAX package's exactly; here they become torch tensors on ``device``. The
 lattice can be cached in an npz that both packages read.
+
+``load_reference_tet_grid`` reads the reference's own grid file
+(``{vertices, indices}``, as ``data/tets/tet_grid.npz``): its topology is
+unstructured (``dims`` None), its unique edges come from a sort, and the
+G-Shell extraction and ``sdf_reg_loss`` take their gather branches.
 """
 
 from __future__ import annotations
@@ -39,7 +44,8 @@ class TetGrid:
     tets: torch.Tensor        # [T, 4] i32 (cell-major, 6 per cell)
     edges: torch.Tensor       # [E+1, 2] i32 class-major; row E = (0, 0)
     tet_edges: torch.Tensor   # [T, 6] i32 edge ids per tet
-    dims: Tuple[int, int, int]   # cells per axis
+    # cells per axis of a lattice; None for an unstructured grid
+    dims: Optional[Tuple[int, int, int]] = None
 
     @property
     def n_verts(self) -> int:
@@ -54,7 +60,9 @@ class TetGrid:
         return self.edges.shape[0] - 1
 
     @property
-    def vert_dims(self) -> Tuple[int, int, int]:
+    def vert_dims(self) -> Optional[Tuple[int, int, int]]:
+        if self.dims is None:
+            return None
         return tuple(d + 1 for d in self.dims)
 
 
@@ -106,6 +114,11 @@ def structured_topology(dims):
                 + (cz + u[2])
             tet_edges[k::6, ei] = offsets[c] + base
     return edges, tets, tet_edges
+
+
+def tet_type_corner_offsets():
+    """The corner offsets of the 6 tet types of a cell (``KUHN_PATHS``)."""
+    return KUHN_PATHS
 
 
 def crop_window(res3, bounds, y_offset, scale, crop_box):
@@ -184,6 +197,12 @@ def make_tet_grid(res=128, bounds=((-0.5, -0.5, -0.5), (0.5, 0.5, 0.5)),
             np.savez_compressed(cache_path, verts=verts, tets=tets,
                                 edges=edges, tet_edges=tet_edges,
                                 dims=np.asarray(res3), meta=meta)
+    return _grid_tensors(verts, tets, edges, tet_edges, res3, device)
+
+
+def _grid_tensors(verts, tets, edges, tet_edges, dims, device) -> TetGrid:
+    """The host arrays as a TetGrid on ``device``, ``edges`` padded with
+    row E = (0, 0)."""
     edges = np.concatenate([edges, np.zeros((1, 2), edges.dtype)], axis=0)
 
     def t(a, dtype):
@@ -192,7 +211,68 @@ def make_tet_grid(res=128, bounds=((-0.5, -0.5, -0.5), (0.5, 0.5, 0.5)),
 
     return TetGrid(verts=t(verts, torch.float32), tets=t(tets, torch.int32),
                    edges=t(edges, torch.int32),
-                   tet_edges=t(tet_edges, torch.int32), dims=res3)
+                   tet_edges=t(tet_edges, torch.int32), dims=dims)
+
+
+def _unique_edges_generic(tets: np.ndarray):
+    """(edges [E, 2] int64 sorted by (e0, e1) with e0 < e1, tet_edges
+    [T, 6] int64) of any tet soup: int64 keys ``e0 << 32 | e1`` and
+    ``np.unique``."""
+    e = tets[:, TET_EDGES_LOCAL]
+    e = np.sort(e, axis=-1).reshape(-1, 2)
+    key = e[:, 0].astype(np.int64) << 32 | e[:, 1].astype(np.int64)
+    uniq, inv = np.unique(key, return_inverse=True)
+    edges = np.stack([uniq >> 32, uniq & 0xFFFFFFFF], axis=-1)
+    return edges.astype(np.int64), inv.reshape(-1, 6)
+
+
+# the reference's grid transform (ref geometry/hmsdf.py:210-211)
+REF_Y_OFFSET = -0.1919
+REF_SCALE = 1.2
+
+
+def load_reference_tet_grid(npz_path: str, device="cuda") -> TetGrid:
+    """A reference-format tet grid npz ({vertices, indices}) with the
+    reference's transform (y + REF_Y_OFFSET, then x REF_SCALE, in float32)
+    and sort-based unique edges; ``dims`` None."""
+    with np.load(npz_path) as z:
+        verts = np.asarray(z["vertices"], np.float32)
+        tets = np.asarray(z["indices"], np.int64)
+    if verts.ndim != 2 or verts.shape[1] != 3 or tets.ndim != 2 \
+            or tets.shape[1] != 4:
+        raise ValueError(f"{npz_path}: vertices {verts.shape} and indices "
+                         f"{tets.shape}, expected [N, 3] and [T, 4]")
+    if tets.size and (tets.min() < 0 or tets.max() >= len(verts)):
+        raise ValueError(f"{npz_path}: indices outside [0, {len(verts)})")
+    verts[:, 1] += REF_Y_OFFSET
+    verts *= REF_SCALE
+    edges, tet_edges = _unique_edges_generic(tets)
+    return _grid_tensors(verts, tets, edges, tet_edges, None, device)
+
+
+def save_reference_tet_grid(npz_path: str, verts, tets) -> None:
+    """Write transformed ``verts`` [N, 3] and ``tets`` [T, 4] as a
+    reference-format npz: ``vertices`` = verts / REF_SCALE with y -
+    REF_Y_OFFSET (in float64, stored float32), ``indices`` int64. Read back
+    by ``load_reference_tet_grid``, positions move by float32 rounding."""
+    v = np.asarray(verts, np.float64) / REF_SCALE
+    v[:, 1] -= REF_Y_OFFSET
+    os.makedirs(os.path.dirname(npz_path) or ".", exist_ok=True)
+    np.savez(npz_path, vertices=v.astype(np.float32),
+             indices=np.asarray(tets, np.int64))
+
+
+def unstructured(grid: TetGrid) -> TetGrid:
+    """``grid``'s verts and tets as an unstructured grid (``dims`` None):
+    edges and tet edges from ``_unique_edges_generic``, so against a
+    lattice only the edge order differs."""
+    edges, tet_edges = _unique_edges_generic(
+        grid.tets.cpu().numpy().astype(np.int64))
+    edges = np.concatenate([edges, np.zeros((1, 2), edges.dtype)], axis=0)
+    dev = grid.verts.device
+    return TetGrid(verts=grid.verts, tets=grid.tets,
+                   edges=torch.as_tensor(edges).to(dev, torch.int32),
+                   tet_edges=torch.as_tensor(tet_edges).to(dev, torch.int32))
 
 
 def template_crop_box(template_verts: np.ndarray, margin: float):

@@ -1,11 +1,18 @@
 """Image- and material-space regularizers (counterpart of
-``d3human_tpu/render/regularizer.py`` without ``shading_loss``, which only
-the environment-light shading feeds). The smoothness inputs are the
-shader's jittered texture and normal taps (``render/pipeline.py``)."""
+``d3human_tpu/render/regularizer.py``). The smoothness inputs are the
+shader's jittered texture and normal taps (``render/pipeline.py``);
+``shading_loss`` takes the environment-light render's diffuse and specular
+light buffers (``render_mesh(bsdf="pbr")``)."""
 
 from __future__ import annotations
 
 import torch
+
+from d3human_tpu_torch.ops.image_loss import _tonemap_log_srgb
+
+
+def _luma(x: torch.Tensor) -> torch.Tensor:
+    return (x[..., 0:1] + x[..., 1:2] + x[..., 2:3]) / 3
 
 
 def _value(x: torch.Tensor) -> torch.Tensor:
@@ -19,6 +26,23 @@ def chroma_loss(kd: torch.Tensor, color_ref: torch.Tensor,
     opt_chroma = kd[..., 0:3] / _value(kd).clamp_min(eps)
     return (((opt_chroma - ref_chroma) * color_ref[..., 3:]).abs().mean()
             * lambda_chroma)
+
+
+def shading_loss(diffuse_light, specular_light, color_ref,
+                 lambda_diffuse: float, lambda_specular: float
+                 ) -> torch.Tensor:
+    """The lights' luma against the reference's value in log-sRGB over its
+    mask, plus the specular-to-diffuse ratio (ref render/regularizer.py:
+    29)."""
+    eps = 0.001
+    dl = _luma(diffuse_light)
+    sl = _luma(specular_light)
+    ref = _value(color_ref)
+    mask = color_ref[..., 3:]
+    img = _tonemap_log_srgb((dl + sl) * mask)
+    tgt = _tonemap_log_srgb(ref * mask)
+    loss = (img - tgt).abs().mean() * lambda_diffuse
+    return loss + sl.mean() / dl.mean().clamp_min(eps) * lambda_specular
 
 
 def material_smoothness_grad(kd_grad, ks_grad, nrm_grad, lambda_kd=0.25,

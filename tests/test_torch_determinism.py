@@ -2,7 +2,7 @@
 change from run to run on a CUDA card.
 
 A ``TorchDispatchMode`` records every aten op of a tiny init, split and
-seq tick on the CPU (forward, backward and the eikonal double backward),
+seq tick on the CPU (init and split also on an unstructured grid) (forward, backward and the eikonal double backward),
 of one validation half and of one pbr forward + backward, and fails on
 any op that PyTorch documents as nondeterministic on CUDA
 (``torch.use_deterministic_algorithms``) when it takes a floating tensor;
@@ -177,6 +177,15 @@ def _step(sc, stage):
     chip_smoke.check_step_metrics(stage, chip_smoke.scalars(m), stage)
 
 
+def _unstructured(sc):
+    """The scene on its lattice's verts and tets as an unstructured grid
+    (the reference format's gather branches of the extraction and of
+    ``sdf_reg_loss``)."""
+    from d3human_tpu_torch.ops.tet_grid import unstructured
+
+    return chip_smoke.on_grid(sc, unstructured(sc["model"].grid))
+
+
 def _pyramid_step(sc):
     """An init step with the weight-free pyramid perceptual loss
     (``loss.perceptual_backbone = "pyramid"``)."""
@@ -203,6 +212,8 @@ PATHS = {"init": functools.partial(_step, stage="init"),
          "split": functools.partial(_step, stage="split"),
          "seq": functools.partial(_step, stage="seq"),
          "init_pyramid": _pyramid_step,
+         "init_unstructured": lambda sc: _step(_unstructured(sc), "init"),
+         "split_unstructured": lambda sc: _step(_unstructured(sc), "split"),
          "validate": _validation,
          "pbr": _pbr}
 
