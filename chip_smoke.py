@@ -280,6 +280,20 @@ object per line (``t``: the script's seconds when the phase ended):
                Chamfer; the first run's kernel calls recorded by call site
   capture_kernels  the cli_kernels checks at the capture run's calls;
                reported under "capture" in each row
+  bench        with every scene freed (the card's free memory on a
+               bench_memory line first), the port's bench entry point as a
+               user runs it, python -m d3human_tpu_torch.bench in a
+               subprocess, three times at the full scale with its default
+               warm-up and timed steps: BENCH_STAGE=init, BENCH_STAGE=split
+               and BENCH_SCALE=seq:full; per run the value line it printed
+               (exactly one line with the JAX bench's four keys, value > 0),
+               its ms a step, its stderr kernel line, its seconds and the
+               peak occupancy of its metric string; each run's kernel calls
+               a timed step those of the stage's step phase (STEP_CALLS, the
+               scatter launched) and its ms a step within BENCH_MS_RATIO of
+               that phase's mean in this run (a bench that timed the
+               enqueue fails); a run that exits non-zero prints the tail of
+               its stderr and fails the script
 
 Then the kernel table, the nvidia-smi line, and the result line
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
@@ -299,6 +313,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -536,33 +551,45 @@ def graph_ms(fn, reps: int = 20, calls: int = 1) -> float:
     return cuda_ms(graph.replay, reps=reps) / calls
 
 
-def parts_ms(fn, parts: dict, need=None, reps: int = 5,
-             tries: int = 3) -> dict:
+# seconds of host idle on each side of the calls in parts_ms' traces, one
+# entry a try: the profiler keeps only device rows that fall inside its
+# window on its clock, and a short window loses rows to a small offset
+# between the host's and the card's timestamps
+PARTS_PAD_S = (0.0, 0.05, 0.25, 1.0)
+
+
+def parts_ms(fn, parts: dict, need=None, reps: int = 5) -> dict:
     """Device time per call of ``fn`` by part, from the profiler's rows of
     the kernels (and memsets) that ``fn`` itself launches: ``parts`` maps a
     part's name to substrings of its kernels' names; what matches none is
     ``other_ms``. A trace in which a part of ``need`` (default: every
     part) has no device row (the profiler lost rows of its device
-    buffers) is taken again, up to ``tries`` times; the callers' checks on
-    the parts then apply to the last trace taken."""
+    buffers) is taken again with a wider window, one try for each entry
+    of PARTS_PAD_S; the callers' checks on the parts then apply to the
+    last trace taken."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     need = set(parts if need is None else need)
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
+    for i, pad in enumerate(PARTS_PAD_S):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(pad)
         rows = [e for e in prof.events()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
         seen = {name for e in rows for name, keys in parts.items()
                 if any(k in e.name for k in keys)}
         if seen >= need:
             break
+        print(f"parts_ms: trace {i + 1} of {len(PARTS_PAD_S)} (pad {pad} s) "
+              f"lacks device rows of {sorted(need - seen)}; "
+              f"{len(rows)} device rows", file=sys.stderr, flush=True)
     out = {name: 0.0 for name in (*parts, "other_ms")}
     for e in rows:
         part = next((name for name, keys in parts.items()
@@ -1171,36 +1198,18 @@ def phase_kernels(sc: dict) -> list:
 
 
 def reset_counts() -> None:
-    from d3human_tpu_torch.ops import compaction, raster_resolve, scan, scatter
+    """Zero every kernel wrapper's counters (the bench's own reset)."""
+    from d3human_tpu_torch.bench import reset_counts as reset
 
-    compaction.first_k_indices.launches = 0
-    compaction.first_k_indices.calls = 0
-    scatter.coo_scatter_add.launches = 0
-    scatter.coo_scatter_add.calls = 0
-    raster_resolve.resolve_tiles.launches = 0
-    raster_resolve.resolve_tiles.floor_launches = 0
-    scan.inclusive_scan.launches = 0
-    scan.inclusive_scan.calls = 0
+    reset()
 
 
 def read_counts() -> dict:
-    """Kernel launches since ``reset_counts``, by the kernel table's names:
-    the resolve's launches with a floor count as ``resolve_tiles_peel``.
-    ``calls`` are calls of the wrappers; they differ from the launches for
-    first_k (a count and a write launch per call), the scatter (two sum
-    kernels per call, one for a single tile) and the scan (two a call)."""
-    from d3human_tpu_torch.ops import compaction, raster_resolve, scan, scatter
+    """Kernel launches since ``reset_counts``, by the kernel table's names,
+    and the wrappers' ``calls`` (``d3human_tpu_torch.bench.read_counts``)."""
+    from d3human_tpu_torch.bench import read_counts as read
 
-    rt = raster_resolve.resolve_tiles
-    n = {"first_k_indices": compaction.first_k_indices.launches,
-         "coo_scatter_add": scatter.coo_scatter_add.launches,
-         "resolve_tiles": rt.launches - rt.floor_launches,
-         "resolve_tiles_peel": rt.floor_launches,
-         "inclusive_scan": scan.inclusive_scan.launches}
-    n["calls"] = dict(n, first_k_indices=compaction.first_k_indices.calls,
-                      coo_scatter_add=scatter.coo_scatter_add.calls,
-                      inclusive_scan=scan.inclusive_scan.calls)
-    return n
+    return read()
 
 
 # calls per step the stage's code path must make (first_k: crossing edges
@@ -4683,6 +4692,102 @@ def phase_ref_grid_uncropped(scale: str, device: str, seed_steps: int,
     return dict(out, launches=launches, calls=calls, inputs=dict(inputs))
 
 
+# ---------------------------------------------------------------- bench
+
+BENCH_STAGES = ("init", "split", "seq")   # the runs of the bench phase
+BENCH_SCALES = {
+    # the JAX bench's full scale, default warm-up and timed steps
+    "full": {},
+    # a CPU-sized rehearsal: the small scale, a short seed, 1 + 2 steps and
+    # no eikonal term (its 50,000-point double backward is most of a CPU
+    # step)
+    "small": {"BENCH_SDF_SEED_STEPS": "10", "BENCH_WARMUP": "1",
+              "BENCH_ITERS": "2", "BENCH_NO_EIK": "1"},
+}
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}
+BENCH_MS_RATIO = 3.0     # a bench step against its stage's step phase
+BENCH_TIMEOUT_S = 600.0
+
+
+def bench_vars(scale: str, stage: str) -> dict:
+    """The BENCH_* variables of the bench phase's run of ``stage``."""
+    run = ({"BENCH_SCALE": f"seq:{scale}"} if stage == "seq" else
+           {"BENCH_SCALE": scale, "BENCH_STAGE": stage})
+    return {**BENCH_SCALES[scale], **run}
+
+
+def run_bench(env: dict, device: str, root: str) -> dict:
+    """``python -m d3human_tpu_torch.bench --device <device>`` in a
+    subprocess from ``root``, ``env`` over this process's environment. A
+    run that exits non-zero prints the tail of its stderr and fails; so
+    does one without exactly one value line with the JAX bench's keys and
+    a value > 0, or without its kernel line. A run past BENCH_TIMEOUT_S is
+    killed and fails."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "d3human_tpu_torch.bench", "--device",
+         device], cwd=root, env={**os.environ, **env}, capture_output=True,
+        text=True, timeout=BENCH_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stderr[-6000:], file=sys.stderr, flush=True)
+    check(proc.returncode == 0, f"bench {env}: exit code {proc.returncode}")
+    out = proc.stdout.splitlines()
+    check(len(out) == 1, f"bench {env}: {len(out)} lines on stdout")
+    line = json.loads(out[0])
+    check(set(line) == BENCH_KEYS, f"bench {env}: keys {sorted(line)}")
+    check(line["value"] > 0, f"bench {env}: value {line['value']}")
+    kern = [x for x in proc.stderr.splitlines() if x.startswith("# kernels ")]
+    check(len(kern) == 1, f"bench {env}: {len(kern)} kernel lines")
+    occ = re.search(r"peak occupancy ([0-9.]+)\)", line["metric"])
+    return dict(line=line, ms_per_step=1e3 / line["value"],
+                kernel_line=kern[0],
+                kernels=json.loads(kern[0][len("# kernels "):]),
+                seconds=seconds,
+                peak_occupancy=float(occ.group(1)) if occ else None)
+
+
+def check_bench_ms(stage: str, ms: float, step_ms: float) -> None:
+    """The bench's ms a step within BENCH_MS_RATIO of ``step_ms``."""
+    check(step_ms / BENCH_MS_RATIO <= ms <= step_ms * BENCH_MS_RATIO,
+          f"bench {stage}: {ms:.2f} ms a step against {step_ms:.2f} ms of "
+          f"its step phase")
+
+
+def phase_bench(scale: str, device: str, root: str,
+                step_ms: dict = None) -> dict:
+    """The BENCH_STAGES' runs at ``scale`` on ``device`` from the checkout at
+    ``root``. On the card each run's kernel calls a timed step are its
+    stage's STEP_CALLS and its ms a step is held to ``step_ms[stage]``, the
+    stage's step-phase mean in this script; on the CPU every count is 0.
+    Returns each run and the launches and calls summed over the runs."""
+    if device == "cuda":
+        import torch
+
+        free, total = torch.cuda.mem_get_info()
+        emit("bench_memory", free_gib=free / 2 ** 30,
+             total_gib=total / 2 ** 30)
+    runs, launches, calls = {}, {}, {}
+    for stage in BENCH_STAGES:
+        r = run_bench(bench_vars(scale, stage), device, root)
+        k, n = r["kernels"], r["kernels"]["iters"]
+        if device == "cuda":
+            check_path_counts(f"bench {stage}", k["launches"], k["calls"],
+                              STEP_CALLS[stage], n)
+            check_bench_ms(stage, r["ms_per_step"], step_ms[stage])
+        else:
+            check(not any(k["launches"].values()),
+                  f"bench {stage}: kernel launches on the CPU")
+        for acc, part in ((launches, k["launches"]), (calls, k["calls"])):
+            for name, v in part.items():
+                acc[name] = acc.get(name, 0) + v
+        r.update(step_phase_ms=(step_ms or {}).get(stage),
+                 calls_per_step={x: v / n for x, v in k["calls"].items()})
+        emit("bench", stage=stage, **r)
+        runs[stage] = r
+    return dict(runs=runs, launches=launches, calls=calls)
+
+
 def _tensors(x):
     import torch
 
@@ -4814,6 +4919,14 @@ def main() -> int:
                     capture=capture_root)
     paths["capture"] = {k: cap[k] for k in ("launches", "calls")}
     phase_cli_kernels(rows, cap.pop("inputs"), "capture")
+    del cap
+    gc.collect()
+    torch.cuda.empty_cache()
+    bench = phase_bench("full", "cuda", here, {
+        "init": paths["init_step"]["mean_ms"],
+        "split": paths["split_step"]["mean_ms"],
+        "seq": paths["seq_step"]["mean_ms"]})
+    paths["bench"] = {k: bench[k] for k in ("launches", "calls")}
     for r in rows:
         # launches: the kernel's launches on the driven paths (INIT_STEPS
         # init steps, SPLIT_STEPS split steps, one validation render of
@@ -4822,8 +4935,9 @@ def main() -> int:
         # init and split steps with the MobileNetV2 backbone, the API-only
         # modules, the frame-parallel seq runner, the DP steps, the CLI's
         # first run on the synthetic scene, the two scorers on it, its
-        # --seq-parallel run and its run on the exported capture, and the
-        # steps on the reference-format grids); first_k
+        # --seq-parallel run and its run on the exported capture, the
+        # steps on the reference-format grids, and the timed steps of the
+        # three bench runs); first_k
         # counts its count and write launches, the scatter each launch of
         # its two sum kernels, and their calls are the calls of the wrapper
         for what in ("launches", "calls"):
@@ -4856,6 +4970,8 @@ def main() -> int:
          capture={"runs": 1, "scale": "full"},
          ref_grid={"cropped": {s: n for s, n in REF_STEPS},
                    "uncropped": {"init": INIT_STEPS, "split": 1}},
+         bench={s: {"timed_steps": r["kernels"]["iters"]}
+                for s, r in bench["runs"].items()},
          launches={k: v["launches"] for k, v in paths.items()},
          calls={k: v["calls"] for k, v in paths.items()})
     if own_group:

@@ -193,10 +193,14 @@ def make_tet_grid(res=128, bounds=((-0.5, -0.5, -0.5), (0.5, 0.5, 0.5)),
         verts *= scale
         edges, tets, tet_edges = structured_topology(res3)
         if cache_path is not None:
+            # written aside and renamed, so a concurrent or killed run never
+            # leaves a reader half a file
             os.makedirs(os.path.dirname(cache_path) or ".", exist_ok=True)
-            np.savez_compressed(cache_path, verts=verts, tets=tets,
+            tmp = f"{cache_path}.{os.getpid()}.tmp.npz"
+            np.savez_compressed(tmp, verts=verts, tets=tets,
                                 edges=edges, tet_edges=tet_edges,
                                 dims=np.asarray(res3), meta=meta)
+            os.replace(tmp, cache_path)
     return _grid_tensors(verts, tets, edges, tet_edges, res3, device)
 
 

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of d3human_tpu_torch imports JAX or
-anything of the JAX package, and chip_smoke.py neither."""
+"""The port stands alone: no module of d3human_tpu_torch imports JAX,
+anything of the JAX package or the repository's JAX bench.py, and
+chip_smoke.py neither."""
 
 import ast
 from pathlib import Path
@@ -9,7 +10,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "d3human_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-BANNED = ("jax", "jaxlib", "optax", "d3human_tpu")
+BANNED = ("jax", "jaxlib", "optax", "d3human_tpu", "bench")
 
 
 def _imports(path):
