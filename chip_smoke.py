@@ -79,7 +79,11 @@ object per line (``t``: the script's seconds when the phase ended):
                n_cov > 0, first_k exactly 5 calls (2 launches each) and the
                resolve 1 launch per step
   profile      one more init step under torch.profiler: device busy time,
-               idle share, top operators by device time, the port's kernels
+               idle share, device ms launched inside each of the port's
+               d3h.* ranges, top operators by device time, the port's
+               kernels
+  profile      the same for FIT_PROFILE_STEPS steps of pretrain_sdf at
+               every lattice vertex (the d3h.geometry.fit.* ranges)
   split_step   the same for SPLIT_STEPS split training steps: both halves
                non-empty, first_k exactly 8 calls and the resolve 2 per step
   validate     the split stage's validation render of both halves
@@ -327,6 +331,8 @@ SURGERY_SEQ_STEPS = 2          # timed seq steps on the surgery's template
 FIELD_STEPS = 30               # Adam steps of each field pretraining
 SEED_STEPS = 400               # Adam steps fitting the SDF to the capsule
 VAL_LAYERS = 2                 # depth-peeled layers of the validation render
+FIT_PROFILE_STEPS = 10         # Adam steps of the profiled SDF fit
+PROFILE_TRACE = "d3human_tpu_torch/build/smoke_profile/trace.json"
 MOBILENET_STEPS = 3            # timed steps a stage with the MobileNetV2 loss
 AUX_DIR = "d3human_tpu_torch/build/smoke_aux"
 EXACT = ("n_cross", "n_valid_tets", "n_big_faces", "n_max_tile")
@@ -581,8 +587,7 @@ def parts_ms(fn, parts: dict, need=None, reps: int = 5) -> dict:
                 fn()
             torch.cuda.synchronize()
             time.sleep(pad)
-        rows = [e for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
+        rows = device_rows(prof)
         seen = {name for e in rows for name, keys in parts.items()
                 if any(k in e.name for k in keys)}
         if seen >= need:
@@ -1385,9 +1390,64 @@ def phase_validate(sc: dict) -> dict:
     return dict(launches=total, calls=total_calls)
 
 
+def device_rows(prof) -> list:
+    """The profiler's rows of device work: its kernels, copies and
+    memsets. A range of the program (``record_function``) also shows on
+    the device's timeline, as a CUDA row that is a user annotation; that
+    row is left out, as torch's own tables leave it out."""
+    import torch
+
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+# the port's profiler ranges (utils/logging.py:span) and the Chrome trace's
+# categories of a launch on the host and of device work
+SPAN_PREFIX = "d3h."
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def span_ms(events: list) -> dict:
+    """Device ms of the work launched inside each of the port's ranges, from
+    a Chrome trace's events: a kernel, copy or memset counts toward each
+    ``d3h.*`` name one of whose ranges (on the host) holds the time of its
+    launch, found by its correlation id, whatever thread launched it
+    (autograd's device thread launches the backward while the caller waits
+    inside its range). Work launched inside no such range counts toward
+    none. ``{}`` when the trace has no ``d3h.*`` range."""
+    import bisect
+
+    ranges: dict = {}
+    for e in events:
+        if (e.get("cat") == "user_annotation" and e.get("ph") == "X"
+                and e["name"].startswith(SPAN_PREFIX)):
+            ranges.setdefault(e["name"], []).append(
+                (e["ts"], e["ts"] + e["dur"]))
+    launch = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("cat") in LAUNCH_CATS
+              and "correlation" in e.get("args", {})}
+    out = {name: 0.0 for name in ranges}
+    for name, rs in ranges.items():
+        # one name's ranges never overlap: each is searched on its own
+        rs.sort()
+        for e in events:
+            if e.get("cat") not in DEVICE_CATS or e.get("ph") != "X":
+                continue
+            t = launch.get(e.get("args", {}).get("correlation"))
+            if t is None:
+                continue
+            i = bisect.bisect_right(rs, (t, float("inf"))) - 1
+            if i >= 0 and rs[i][0] <= t <= rs[i][1]:
+                out[name] += e["dur"] / 1e3
+    return out
+
+
 def phase_profile(what: str, run) -> None:
-    """``run()`` once more under torch.profiler (a training step or a
-    validation render): device busy time against its wall time, the
+    """``run()`` once more under torch.profiler (a training step, a fit or
+    a validation render): device busy time against its wall time, the
+    device ms launched inside each of the port's ranges (``span_ms``), the
     operators with the most device time, the port's own kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1399,8 +1459,14 @@ def phase_profile(what: str, run) -> None:
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_rows(prof)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        PROFILE_TRACE)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        spans = span_ms(json.load(fh)["traceEvents"])
+    os.remove(path)
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
     avg = sorted(prof.key_averages(), key=lambda e: e.self_device_time_total,
                  reverse=True)
@@ -1415,7 +1481,7 @@ def phase_profile(what: str, run) -> None:
                 if e.key == "aten::_index_put_impl_"]
     emit("profile", of=what, wall_ms=wall_ms, device_busy_ms=busy_ms,
          idle_share=1.0 - busy_ms / wall_ms, device_kernels=len(kernels),
-         top=[row(e) for e in avg[:20]],
+         spans_ms=spans, top=[row(e) for e in avg[:20]],
          index_put=[dict(shapes=str(e.input_shapes), calls=e.count,
                          device_ms=e.device_time_total / 1e3)
                     for e in sorted(by_shape, key=lambda e:
@@ -2474,6 +2540,16 @@ def surgery_scene(sc: dict, template) -> dict:
     params = tree_map(lambda t: t.clone(), sc["params"])
     return dict(sc, params=params, seq_template=template,
                 seq_state=init_state("seq", params, sc["seq_cfg"]))
+
+
+def profiled_fit(sc: dict, steps: int) -> None:
+    """``pretrain_sdf`` of the scene's SDF MLP toward the capsule at every
+    lattice vertex, on a copy of its layers (the scene keeps its own)."""
+    from d3human_tpu_torch.data.synthetic import capsule_sdf
+
+    model = sc["model"]
+    model.pretrain_sdf(sc["params"]["geometry"],
+                       capsule_sdf(model.grid.verts), steps=steps)
 
 
 def one_more_step(sc: dict, stage: str) -> None:
@@ -4842,6 +4918,8 @@ def main() -> int:
         return 0
     paths = {"init_step": phase_step(sc, "init", INIT_STEPS)}
     phase_profile("init step", lambda: one_more_step(sc, "init"))
+    phase_profile(f"sdf fit, {FIT_PROFILE_STEPS} steps",
+                  lambda: profiled_fit(sc, FIT_PROFILE_STEPS))
     paths["split_step"] = phase_step(sc, "split", SPLIT_STEPS)
     paths["validate"] = phase_validate(sc)
     phase_profile("split step", lambda: one_more_step(sc, "split"))

@@ -18,6 +18,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from d3human_tpu_torch.utils.logging import span
+
 Params = dict
 
 
@@ -119,16 +121,17 @@ class MLP:
 
     def apply(self, params: Params, x: torch.Tensor,
               extra: Optional[torch.Tensor] = None) -> torch.Tensor:
-        emb = posenc(x, self.n_freq)
-        h = emb if extra is None else torch.cat([extra, emb], dim=-1)
-        layers = params["layers"]
-        bf16 = self.use_bfloat16
-        h = softplus100(_linear(layers[0], h, bf16))
-        for i in range(self.n_hidden):
-            if i in self.skip_in:
-                h = torch.cat([h, emb], dim=-1)
-            h = softplus100(_linear(layers[i + 1], h, bf16))
-        return _linear(layers[-1], h, False)
+        with span("d3h.fields.mlp"):
+            emb = posenc(x, self.n_freq)
+            h = emb if extra is None else torch.cat([extra, emb], dim=-1)
+            layers = params["layers"]
+            bf16 = self.use_bfloat16
+            h = softplus100(_linear(layers[0], h, bf16))
+            for i in range(self.n_hidden):
+                if i in self.skip_in:
+                    h = torch.cat([h, emb], dim=-1)
+                h = softplus100(_linear(layers[i + 1], h, bf16))
+            return _linear(layers[-1], h, False)
 
 
 class DeformMLP(MLP):

@@ -36,6 +36,7 @@ from d3human_tpu_torch.ops.marching_tets import (
 from d3human_tpu_torch.ops.mesh_sdf import mesh_sdf
 from d3human_tpu_torch.ops.scatter import gather_rows
 from d3human_tpu_torch.ops.tet_grid import TetGrid
+from d3human_tpu_torch.utils.logging import span
 
 Params = dict
 
@@ -224,21 +225,28 @@ class GeometryModel:
              ) -> Tuple[Params, float]:
         """Full-batch Adam on a copy of an MLP's layers: ``steps`` steps
         minimising ``loss_fn(layers)``. Returns the fitted layers and the
-        last step's loss (taken before its update)."""
-        leaves = [t.detach().clone().requires_grad_(True)
-                  for lay in net["layers"] for t in (lay["w"], lay["b"])]
-        layers = {"layers": [{"w": leaves[2 * i], "b": leaves[2 * i + 1]}
-                             for i in range(len(leaves) // 2)]}
-        opt = torch.optim.Adam(leaves, lr=lr, eps=1e-8)
-        loss = torch.zeros(())
-        for _ in range(steps):
-            opt.zero_grad(set_to_none=True)
-            loss = loss_fn(layers)
-            loss.backward()
-            opt.step()
-        return ({"layers": [{k: v.detach() for k, v in lay.items()}
-                            for lay in layers["layers"]]},
-                float(loss.detach()))
+        last step's loss (taken before its update). Under a profiler, each
+        step and its forward, backward and optimizer parts are ranges of
+        the trace (``utils.logging.span``)."""
+        with span("d3h.geometry.fit"):
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for lay in net["layers"] for t in (lay["w"], lay["b"])]
+            layers = {"layers": [{"w": leaves[2 * i], "b": leaves[2 * i + 1]}
+                                 for i in range(len(leaves) // 2)]}
+            opt = torch.optim.Adam(leaves, lr=lr, eps=1e-8)
+            loss = torch.zeros(())
+            for _ in range(steps):
+                with span("d3h.geometry.fit.step"):
+                    opt.zero_grad(set_to_none=True)
+                    with span("d3h.geometry.fit.forward"):
+                        loss = loss_fn(layers)
+                    with span("d3h.geometry.fit.backward"):
+                        loss.backward()
+                    with span("d3h.geometry.fit.optimizer"):
+                        opt.step()
+            return ({"layers": [{k: v.detach() for k, v in lay.items()}
+                                for lay in layers["layers"]]},
+                    float(loss.detach()))
 
     def pretrain_sdf(self, params: Params, target_sdf: torch.Tensor,
                      steps: int, lr: float = 1e-3) -> Tuple[Params, float]:

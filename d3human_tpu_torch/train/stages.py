@@ -332,9 +332,9 @@ def run_seq_stage_parallel(params: Dict, template: SeqTemplate,
     if mesh.rank == 0:
         print(f"[seq-par] {n_frames} frames (+{n_pad - n_frames} pad) x "
               f"{n_iters} iters on {mesh.world} device(s)", flush=True)
-    t0 = time.time()
+    t0 = time.perf_counter()
     per_frame, totals = launch(params, targets, seed)
-    wall = time.time() - t0
+    wall = time.perf_counter() - t0
     if mesh.rank == 0:
         print(f"[seq-par] done in {wall:.1f}s ({wall / n_iters * 1000:.1f} "
               "ms/iter wall across all frames)", flush=True)

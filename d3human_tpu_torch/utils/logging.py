@@ -1,10 +1,12 @@
-"""Scalar logging and per-step timing (counterpart of
+"""Scalar logging, per-step timing and profiler spans (counterpart of
 ``d3human_tpu/utils/logging.py``): scalars stream to ``scalars.jsonl`` in
 the JAX package's line format (there is no tensorboard writer here); the
-step timer synchronises the device only in ``flush``."""
+step timer synchronises the device only in ``flush``; ``span`` names a
+range of the program in a running profiler's trace."""
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -46,7 +48,7 @@ class StepTimer:
         self._laps = 0
 
     def start(self) -> None:
-        self._t0 = time.time()
+        self._t0 = time.perf_counter()
         self._laps = 0
 
     def lap(self) -> None:
@@ -59,9 +61,9 @@ class StepTimer:
             return
         if isinstance(result, torch.Tensor) and result.is_cuda:
             torch.cuda.synchronize(result.device)
-        dt = (time.time() - self._t0) / self._laps
+        dt = (time.perf_counter() - self._t0) / self._laps
         self.durations.extend([dt] * self._laps)
-        self._t0 = time.time()
+        self._t0 = time.perf_counter()
         self._laps = 0
 
     @property
@@ -75,3 +77,16 @@ class StepTimer:
         m, s = divmod(int(secs), 60)
         h, m = divmod(m, 60)
         return f"{h:d}:{m:02d}:{s:02d}"
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A range named ``name`` in the trace of a running profiler
+    (``torch.profiler`` or the Kineto profiler under it), stamped on the
+    clock of the device's kernels and copies; without one, a shared null
+    context, so the program pays one check a span."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN

@@ -81,3 +81,66 @@ def test_parts_ms_needs_only_the_parts_asked_for(monkeypatch):
     out = chip_smoke.parts_ms(lambda: None, parts, need=("sum_ms",), reps=2)
     assert seen["pads"] == [chip_smoke.PARTS_PAD_S[0]]
     assert out == {"prep_sort_ms": 0.0, "sum_ms": 0.01, "other_ms": 0.0}
+
+
+def test_parts_ms_leaves_out_the_user_annotation_rows(monkeypatch):
+    """A ``record_function`` range shows as a CUDA row flagged as a user
+    annotation: it is no device work, and no part or ``other_ms`` holds
+    it."""
+    note = types.SimpleNamespace(name="d3h.fields.mlp", device_type=CUDA,
+                                 device_time_total=1000.0,
+                                 is_user_annotation=True)
+    full = [_row("first_k_count_kernel", 50.0),
+            _row("first_k_write_kernel", 100.0), note]
+    _fake_profiler(monkeypatch, [full])
+    out = chip_smoke.parts_ms(lambda: None, PARTS, reps=1)
+    assert out == {"count_ms": 0.05, "write_ms": 0.1, "other_ms": 0.0}
+
+
+def _annotation(name, ts, dur, cat="user_annotation"):
+    return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur,
+            "tid": 1}
+
+
+def _launch(corr, ts, tid=1):
+    return {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+            "ts": ts, "dur": 2, "tid": tid, "args": {"correlation": corr}}
+
+
+def _device(corr, ts, dur, cat="kernel"):
+    return {"ph": "X", "cat": cat, "name": f"k{corr}", "ts": ts, "dur": dur,
+            "tid": 7, "args": {"correlation": corr}}
+
+
+def test_span_ms_books_work_by_its_launch_time():
+    """Nested ranges each count what was launched inside them; a kernel
+    launched from autograd's thread (tid 2) inside the backward's range
+    counts there; the device's own annotation rows and work launched
+    outside every range count toward none."""
+    events = [
+        _annotation("d3h.geometry.fit.step", 0, 100),
+        _annotation("d3h.geometry.fit.forward", 0, 40),
+        _annotation("d3h.fields.mlp", 5, 30),
+        _annotation("d3h.geometry.fit.backward", 40, 50),
+        _annotation("d3h.fields.mlp", 500, 10, cat="gpu_user_annotation"),
+        _annotation("d3h_bench.step", 0, 1000),
+        _launch(1, 10), _device(1, 20, 1000),               # in the mlp
+        _launch(2, 37), _device(2, 60, 500),                # forward alone
+        _launch(3, 45, tid=2), _device(3, 100, 2000),       # backward
+        _launch(4, 50), _device(4, 120, 250, "gpu_memset"),
+        _launch(5, 95), _device(5, 130, 125, "gpu_memcpy"),  # step alone
+        _launch(6, 200), _device(6, 300, 4000),             # outside all
+        _device(7, 400, 8000),                              # no launch
+    ]
+    assert chip_smoke.span_ms(events) == {
+        "d3h.geometry.fit.step": 3.875,
+        "d3h.geometry.fit.forward": 1.5,
+        "d3h.fields.mlp": 1.0,
+        "d3h.geometry.fit.backward": 2.25,
+    }
+
+
+def test_span_ms_without_a_port_range_is_empty():
+    events = [_annotation("d3h_bench.window", 0, 100), _launch(1, 10),
+              _device(1, 20, 1000)]
+    assert chip_smoke.span_ms(events) == {}
