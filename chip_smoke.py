@@ -60,7 +60,11 @@ object per line (``t``: the script's seconds when the phase ended):
                (without and with a depth-peel floor; the main path's form,
                rows by face id over the live ranges, and the parity form,
                copied rows over all slots) exactly equal to the plain FULL
-               scan. Time of the kernel's wrapper, of the plain version and
+               scan; the fields MLP's bias + softplus at a hidden layer
+               and at the layer before the skip, at every grid vertex
+               (forward bit for bit, backward within 1e-6, its bias
+               gradient bit for bit across two calls). Time of the
+               kernel's wrapper, of the plain version and
                of a library call computing the same function (CUDA events),
                and the wrapper's device time alone (CUDA-graph replays of
                one call; for first_k also of 20 calls back to back);
@@ -828,6 +832,84 @@ def check_scan(what: str, x) -> dict:
                 library_ms=cuda_ms(lambda: torch.cumsum(x, -1)))
 
 
+SOFTPLUS_TOL = 1e-6      # the backward against its plain version, of the
+                         # largest entry
+
+
+def check_bias_softplus(what: str, n: int, c: int, t: int) -> dict:
+    """The fused bias + softplus of the fields MLP at one layer's shape,
+    product z [n, c] and tail [n, t], on seeded values: the forward equal
+    to the plain composition bit for bit, g_z and g_b within SOFTPLUS_TOL
+    of the plain backward, g_b the same bits on a second call, one launch
+    forward and two backward; device ms of each (CUDA-graph replays), the
+    bound (the forward reads z and the tail and writes [h, tail]; the
+    backward reads g_h and h and writes g_z: bytes at 3.35 TB/s), the plain
+    versions' ms and ``library_ms``: the composition it replaced,
+    ``softplus(100 (z + b)) * 0.01`` and ``torch.cat`` forward, and its
+    autograd backward to z, b and the tail."""
+    import torch
+    import torch.nn.functional as F
+
+    from d3human_tpu_torch.ops import bias_softplus as bs
+
+    gen = torch.Generator(device="cuda").manual_seed(n + t)
+    z = torch.randn((n, c), generator=gen, device="cuda") * 0.3
+    b = torch.randn((c,), generator=gen, device="cuda") * 0.1
+    tail = torch.randn((n, t), generator=gen, device="cuda") if t else None
+    g_out = torch.randn((n, c + t), generator=gen, device="cuda")
+    fn = bs.bias_softplus100
+    counts0 = (fn.launches, fn.calls)
+    out = fn(z, b, tail)
+    g_h, h = g_out[:, :c], out[:, :c]
+    gz, gb = bs._backward_cuda(g_h, h)
+    check((fn.launches - counts0[0], fn.calls - counts0[1])
+          == (bs.LAUNCHES + bs.GRAD_LAUNCHES, 1),
+          f"bias_softplus {what}: {fn.launches - counts0[0]} launches "
+          "counted for one forward and one backward call")
+    check(torch.equal(out, bs.bias_softplus100_plain(z, b, tail)),
+          f"bias_softplus {what}: the forward differs from the plain one")
+    want_z, want_b = bs.bias_softplus100_grad_plain(g_h, h)
+    errs = {}
+    for name, got, want in (("g_z", gz, want_z), ("g_b", gb, want_b)):
+        errs[name] = float((got - want).abs().max() / want.abs().max())
+        check(errs[name] <= SOFTPLUS_TOL, f"bias_softplus {what}: {name} "
+              f"{errs[name]} from the plain backward")
+    check(torch.equal(bs._backward_cuda(g_h, h)[1], gb),
+          f"bias_softplus {what}: two backward calls give other g_b bits")
+
+    leaves = [x.clone().requires_grad_(True)
+              for x in (z, b) + (() if tail is None else (tail,))]
+
+    def composition():
+        y = F.softplus(100.0 * (leaves[0] + leaves[1])) * 0.01
+        if tail is not None:
+            y = torch.cat([y, leaves[2]], dim=-1)
+        return torch.autograd.grad(y, leaves, g_out)
+
+    def plain():
+        o = bs.bias_softplus100_plain(z, b, tail)
+        return bs.bias_softplus100_grad_plain(g_h, o[:, :c])
+
+    fwd_b, fwd_by = bound_ms(4 * n * (2 * c + 2 * t) + 4 * c)
+    bwd_b, bwd_by = bound_ms(4 * n * 3 * c + 4 * c)
+    res = dict(call=what, n=n, c=c, t=t, bitwise_forward=True,
+               rel_err=errs, bitwise_repeat=True,
+               launches_per_call=dict(forward=bs.LAUNCHES,
+                                      backward=bs.GRAD_LAUNCHES),
+               bound_ms=fwd_b + bwd_b, bound_by=fwd_by,
+               forward_bound_ms=fwd_b, backward_bound_ms=bwd_b,
+               forward_device_ms=graph_ms(lambda: fn(z, b, tail)),
+               backward_device_ms=graph_ms(
+                   lambda: bs._backward_cuda(g_h, h)),
+               ms=cuda_ms(lambda: bs._backward_cuda(
+                   g_h, fn(z, b, tail)[:, :c])),
+               plain_ms=cuda_ms(plain), library_ms=cuda_ms(composition))
+    res["device_ms"] = res["forward_device_ms"] + res["backward_device_ms"]
+    res["max_abs_err"] = max(float((gz - want_z).abs().max()),
+                             float((gb - want_b).abs().max()))
+    return res
+
+
 def check_scatter(what: str, idx, live, C: int, rows_out: int, srt: bool,
                   gen, faster: bool = True) -> dict:
     """The scatter at one shape on random rows (zero where ``live`` is
@@ -1162,6 +1244,31 @@ def phase_kernels(sc: dict) -> list:
                      device_ms=sn[0]["device_ms"],
                      probe=dict(kernel_summary(sn[1]), shape=(
                          f"{sn[1]['shape'][0]} rows x {sn[1]['shape'][1]}"))))
+
+    # ---- the fields MLP's fused bias + softplus at the SDF fit's shapes:
+    # a hidden layer at every grid vertex, and the layer before the skip,
+    # which writes [h, encoding]
+    from d3human_tpu_torch.ops import bias_softplus
+
+    fc = cfg.field
+    nv = model.grid.verts.shape[0]
+    sp = [check_bias_softplus("hidden layer", nv, fc.d_hidden, 0),
+          check_bias_softplus("before the skip", nv, fc.d_hidden,
+                              model.sdf_mlp.d_emb)]
+    emit("kernel_bias_softplus", bitwise_forward=True,
+         tolerance=f"{SOFTPLUS_TOL} of the largest entry",
+         rows_per_cta=bias_softplus.ROWS, calls=sp)
+    rows.append(dict(name="bias_softplus100", route="cuda",
+                     source="d3human_tpu_torch/csrc/softplus100.cu",
+                     replaces="port-only (the JAX MLP's softplus is plain "
+                              "jnp: d3human_tpu/models/fields.py)",
+                     shape=f"N={nv} C={fc.d_hidden}",
+                     **kernel_summary(sp[0]),
+                     forward_device_ms=sp[0]["forward_device_ms"],
+                     backward_device_ms=sp[0]["backward_device_ms"],
+                     skip=dict(kernel_summary(sp[1]),
+                               shape=f"N={nv} C={fc.d_hidden} + "
+                                     f"{model.sdf_mlp.d_emb}")))
 
     # ---- tile resolve on the scene's own binning: exact keys
     emit("bin_faces", **binning_stats(binned, v_clip, faces, fvalid, res))

@@ -278,7 +278,9 @@ def build_seq(scale: str, device=DEFAULT_DEVICE):
 
 def reset_counts() -> None:
     """Zero every kernel wrapper's counters."""
-    from d3human_tpu_torch.ops import compaction, raster_resolve, scan, scatter
+    from d3human_tpu_torch.ops import (
+        bias_softplus, compaction, raster_resolve, scan, scatter,
+    )
 
     compaction.first_k_indices.launches = 0
     compaction.first_k_indices.calls = 0
@@ -288,6 +290,8 @@ def reset_counts() -> None:
     raster_resolve.resolve_tiles.floor_launches = 0
     scan.inclusive_scan.launches = 0
     scan.inclusive_scan.calls = 0
+    bias_softplus.bias_softplus100.launches = 0
+    bias_softplus.bias_softplus100.calls = 0
 
 
 def read_counts() -> dict:
@@ -295,19 +299,26 @@ def read_counts() -> dict:
     the resolve's launches with a floor count as ``resolve_tiles_peel``.
     ``calls`` are calls of the wrappers; they differ from the launches for
     first_k (a count and a write launch per call), the scatter (two sum
-    kernels per call, one for a single tile) and the scan (two a call).
-    The wrappers count only on CUDA tensors: on the CPU all are 0."""
-    from d3human_tpu_torch.ops import compaction, raster_resolve, scan, scatter
+    kernels per call, one for a single tile), the scan (two a call) and
+    the fields MLP's bias + softplus (calls of its forward, one launch
+    each, and two launches each backward). The wrappers count only on
+    CUDA tensors: on the CPU all are 0."""
+    from d3human_tpu_torch.ops import (
+        bias_softplus, compaction, raster_resolve, scan, scatter,
+    )
 
     rt = raster_resolve.resolve_tiles
+    sp = bias_softplus.bias_softplus100
     n = {"first_k_indices": compaction.first_k_indices.launches,
          "coo_scatter_add": scatter.coo_scatter_add.launches,
          "resolve_tiles": rt.launches - rt.floor_launches,
          "resolve_tiles_peel": rt.floor_launches,
-         "inclusive_scan": scan.inclusive_scan.launches}
+         "inclusive_scan": scan.inclusive_scan.launches,
+         "bias_softplus100": sp.launches}
     n["calls"] = dict(n, first_k_indices=compaction.first_k_indices.calls,
                       coo_scatter_add=scatter.coo_scatter_add.calls,
-                      inclusive_scan=scan.inclusive_scan.calls)
+                      inclusive_scan=scan.inclusive_scan.calls,
+                      bias_softplus100=sp.calls)
     return n
 
 

@@ -7,7 +7,9 @@ package's layout (``x @ w + b``), so converted JAX weights compute the same
 function. With ``use_bfloat16`` the input and hidden layers multiply
 bfloat16-rounded inputs and weights with float32 accumulation and a
 float32 bias; the output layer stays float32 (the SDF's sign decides the
-mesh's topology).
+mesh's topology). Each input and hidden layer's bias and activation are
+one pass forward and one backward (``ops/bias_softplus.py``) on the
+product without its bias.
 """
 
 from __future__ import annotations
@@ -16,8 +18,8 @@ import math
 from typing import Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 
+from d3human_tpu_torch.ops.bias_softplus import bias_softplus100
 from d3human_tpu_torch.utils.logging import span
 
 Params = dict
@@ -38,11 +40,6 @@ def posenc(x: torch.Tensor, n_freq: int) -> torch.Tensor:
 
 def posenc_dim(in_channels: int, n_freq: int) -> int:
     return in_channels * (2 * n_freq + 1)
-
-
-def softplus100(x: torch.Tensor) -> torch.Tensor:
-    """softplus(100 x) / 100 (ref mlp.py:15)."""
-    return F.softplus(100.0 * x) * 0.01
 
 
 def _linear_init(gen: torch.Generator, d_in: int, d_out: int,
@@ -83,12 +80,13 @@ class _Bf16Product(torch.autograd.Function):
         return gx, gw
 
 
-def _linear(lin: Params, h: torch.Tensor, bf16: bool) -> torch.Tensor:
+def _product(lin: Params, h: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """h @ w, without the bias."""
     if not bf16:
-        return h @ lin["w"] + lin["b"]
+        return h @ lin["w"]
     y = _Bf16Product.apply(h.reshape(-1, h.shape[-1]).to(torch.bfloat16),
                            lin["w"].to(torch.bfloat16))
-    return y.reshape(*h.shape[:-1], y.shape[-1]) + lin["b"]
+    return y.reshape(*h.shape[:-1], y.shape[-1])
 
 
 class MLP:
@@ -125,13 +123,14 @@ class MLP:
             emb = posenc(x, self.n_freq)
             h = emb if extra is None else torch.cat([extra, emb], dim=-1)
             layers = params["layers"]
-            bf16 = self.use_bfloat16
-            h = softplus100(_linear(layers[0], h, bf16))
-            for i in range(self.n_hidden):
-                if i in self.skip_in:
-                    h = torch.cat([h, emb], dim=-1)
-                h = softplus100(_linear(layers[i + 1], h, bf16))
-            return _linear(layers[-1], h, False)
+            # the input layer and the hidden layers; the output of layer j
+            # feeds hidden layer j, so j in skip_in writes [h, emb]
+            for j, lin in enumerate(layers[:-1]):
+                tail = emb if j < self.n_hidden and j in self.skip_in \
+                    else None
+                h = bias_softplus100(
+                    _product(lin, h, self.use_bfloat16), lin["b"], tail)
+            return h @ layers[-1]["w"] + layers[-1]["b"]
 
 
 class DeformMLP(MLP):

@@ -330,3 +330,150 @@ def test_cuda_scan_equals_cumsum_and_repeats(cuda_device, rows, n):
     err = float((got.cpu().double() - want).abs().max())
     assert err <= 1e-6 * float(want.abs().max()), err
     assert torch.equal(fn(x.cuda()), got)
+
+
+def _softplus_layer(n, c, t, seed, device):
+    """A hidden layer's product z [n, c] (100 (z + b) on both sides of the
+    softplus threshold 20 and far below 0), bias, tail [n, t] and an
+    incoming gradient [n, c + t]."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    z = torch.randn((n, c), generator=g, device=device) * 0.3
+    b = torch.randn((c,), generator=g, device=device) * 0.1
+    tail = torch.randn((n, t), generator=g, device=device) if t else None
+    g_out = torch.randn((n, c + t), generator=g, device=device)
+    return z, b, tail, g_out
+
+
+def _rel_max(got, want):
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,t", [
+    (674_310, 256, 0),      # the SDF fit's hidden layers
+    (674_310, 256, 39),     # the layer before the skip: rows of 295
+    (1, 256, 0), (255, 256, 0), (257, 256, 39), (1000, 256, 51),
+    (3000, 30, 0),          # no multiple of 4: one column a thread
+    (513, 64, 39)])
+def test_cuda_bias_softplus_equals_plain(cuda_device, n, c, t):
+    """The forward equal to the plain composition bit for bit, the tail
+    beside it; g_z and g_b within 1e-6 of the plain backward (g_b summed
+    in double by both), g_b the same bits on a second run; one launch
+    forward and two backward counted."""
+    from d3human_tpu_torch.ops import bias_softplus as bs
+
+    z, b, tail, g_out = _softplus_layer(n, c, t, n + c + t, cuda_device)
+    u = 100.0 * (z + b)
+    assert n < 100 or (float(u.max()) > 20.0 and float(u.min()) < -20.0)
+    fn = bs.bias_softplus100
+    before = (fn.launches, fn.calls)
+    out = fn(z, b, tail)
+    assert (fn.launches - before[0], fn.calls - before[1]) == (
+        bs.LAUNCHES, 1)
+    assert torch.equal(out, bs.bias_softplus100_plain(z, b, tail))
+    # the gradient of h as the skip layer's product gives it: the first c
+    # columns of a [n, c + t] tensor (a row stride of c + t)
+    g_h, h = g_out[:, :c], out[:, :c]
+    gz, gb = bs._backward_cuda(g_h, h)
+    assert fn.launches - before[0] == bs.LAUNCHES + bs.GRAD_LAUNCHES
+    want_z, want_b = bs.bias_softplus100_grad_plain(g_h, h)
+    assert _rel_max(gz, want_z) <= 1e-6
+    assert _rel_max(gb, want_b) <= 1e-6
+    gz2, gb2 = bs._backward_cuda(g_h.contiguous(), h.contiguous())
+    assert torch.equal(gb2, gb) and torch.equal(gz2, gz)
+    assert torch.equal(bs._backward_cuda(g_h, h)[1], gb)
+
+
+@pytest.mark.cuda
+def test_cuda_bias_softplus_through_autograd(cuda_device):
+    """The Function's gradients of z, b and the tail on the card against
+    PyTorch's autograd of the composition, and an eikonal-style double
+    backward of a small skip MLP against the composition MLP on the card,
+    within 1e-5."""
+    import torch.nn.functional as F
+
+    from d3human_tpu_torch.models.fields import MLP, posenc
+    from d3human_tpu_torch.ops.bias_softplus import bias_softplus100
+
+    z, b, tail, g_out = _softplus_layer(4099, 256, 39, 7, cuda_device)
+
+    def composition(z, b, tail):
+        return torch.cat([F.softplus(100.0 * (z + b)) * 0.01, tail], -1)
+
+    grads = []
+    for fn in (bias_softplus100, composition):
+        leaves = [x.clone().requires_grad_(True) for x in (z, b, tail)]
+        grads.append(torch.autograd.grad(fn(*leaves), leaves, g_out))
+    for got, want in zip(*grads):
+        assert _rel_max(got, want) <= 1e-6
+
+    mlp = MLP(n_freq=6, d_hidden=64, n_hidden=4, skip_in=(2,))
+    params = mlp.init(torch.Generator().manual_seed(3), cuda_device)
+    pts = torch.rand((2000, 3), generator=torch.Generator().manual_seed(4))
+    pts = (pts * 1.6 - 0.8).to(cuda_device).requires_grad_(True)
+
+    def composition_mlp(p, x):
+        emb = posenc(x, mlp.n_freq)
+        h, lay = emb, p["layers"]
+        for j in range(mlp.n_hidden + 1):
+            if j - 1 in mlp.skip_in:
+                h = torch.cat([h, emb], dim=-1)
+            h = F.softplus(100.0 * (h @ lay[j]["w"] + lay[j]["b"])) * 0.01
+        return h @ lay[-1]["w"] + lay[-1]["b"]
+
+    results = []
+    for fn in (mlp.apply, composition_mlp):
+        leaves = [t.clone().requires_grad_(True)
+                  for lay in params["layers"] for t in (lay["w"], lay["b"])]
+        p = {"layers": [{"w": leaves[2 * i], "b": leaves[2 * i + 1]}
+                        for i in range(len(leaves) // 2)]}
+        y = fn(p, pts)
+        (grad,) = torch.autograd.grad(y.sum(), pts, create_graph=True)
+        loss = ((torch.linalg.norm(grad, dim=-1) - 1.0) ** 2).mean()
+        results.append((y, torch.autograd.grad(loss, leaves[:-1] + [pts])))
+    (y, ws), (y0, ws0) = results
+    assert torch.equal(y, y0)
+    for got, want in zip(ws, ws0):
+        assert _rel_max(got, want) <= 1e-5
+
+
+# a pretrain_sdf step of the 6 x 256 SDF MLP: the input layer and six
+# hidden layers each one forward call (one launch) and one backward call
+# (two launches: g_z with the partial column sums, then their reduce)
+FIT_STEP_CALLS = 7
+
+
+@pytest.mark.cuda
+def test_cuda_pretrain_sdf_step_goes_through_the_kernel(cuda_device):
+    """One step of ``GeometryModel.pretrain_sdf`` at the f3c field's width
+    on 20,000 points: FIT_STEP_CALLS forward calls and FIT_STEP_CALLS x 3
+    launches (one forward, two backward each); two runs from the same
+    layers give the same bits."""
+    import types
+
+    from d3human_tpu_torch.config import FieldConfig
+    from d3human_tpu_torch.models.fields import MLP
+    from d3human_tpu_torch.models.geometry import GeometryModel
+    from d3human_tpu_torch.ops import bias_softplus as bs
+
+    f = FieldConfig()
+    mlp = MLP(n_freq=f.n_freq, d_hidden=f.d_hidden, n_hidden=f.n_hidden,
+              skip_in=f.skip_in)
+    assert f.n_hidden + 1 == FIT_STEP_CALLS
+    gen = torch.Generator().manual_seed(0)
+    params = {"sdf_net": mlp.init(gen, cuda_device)}
+    verts = (torch.rand((20_000, 3), generator=gen) - 0.5).to(cuda_device)
+    geo = types.SimpleNamespace(grid=types.SimpleNamespace(verts=verts),
+                                sdf_mlp=mlp, _fit=GeometryModel._fit)
+    target = 0.3 - verts.norm(dim=-1)
+    fn = bs.bias_softplus100
+    runs = []
+    for _ in range(2):
+        before = (fn.launches, fn.calls)
+        out, loss = GeometryModel.pretrain_sdf(geo, params, target, steps=1)
+        assert (fn.launches - before[0], fn.calls - before[1]) == (
+            FIT_STEP_CALLS * (bs.LAUNCHES + bs.GRAD_LAUNCHES),
+            FIT_STEP_CALLS)
+        runs.append(out["sdf_net"]["layers"])
+    for a, b in zip(*runs):
+        assert torch.equal(a["w"], b["w"]) and torch.equal(a["b"], b["b"])
