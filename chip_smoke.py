@@ -57,10 +57,11 @@ object per line (``t``: the script's seconds when the phase ended):
                copy or cast) and its eager wrapper faster than
                torch.nonzero + pad; the scatter within rel 1e-5 /
                abs 1e-6 and bitwise equal across two runs; the tile resolve
-               (without and with a depth-peel floor; the main path's form,
-               rows by face id over the live ranges, and the parity form,
-               copied rows over all slots) exactly equal to the plain FULL
-               scan; the fields MLP's bias + softplus at a hidden layer
+               (without and with a depth-peel floor, every tile's whole
+               list) exactly equal to its plain version and to its own
+               second call, its (slot, tile) pairs counted on the device
+               equal to the plain walk's and its share of the bound they
+               give; the fields MLP's bias + softplus at a hidden layer
                and at the layer before the skip, at every grid vertex
                (forward bit for bit, backward within 1e-6, its bias
                gradient bit for bit across two calls). Time of the
@@ -376,8 +377,7 @@ SCALES = {
     # a CPU-sized rehearsal of the same paths
     "tiny": dict(res=(32, 32), grid_res=8, mv=2048, mt=2048, n_eik=256,
                  cov=0.9, crop=24, raster_opts=dict(
-                     tile=(8, 16), max_faces_per_tile=128, bin_expand=8,
-                     max_global=128),
+                     tile=(8, 16), bin_expand=8),
                  seq=dict(n_subdiv=1, target_faces=None, cov=0.9),
                  sdf_chunk=100),
 }
@@ -998,76 +998,70 @@ def check_scatter(what: str, idx, live, C: int, rows_out: int, srt: bool,
 
 
 def binning_stats(binned, v_clip, faces, fvalid, res) -> dict:
-    """The binning's time with and without the per-slot copy of the rows,
-    and how its tiles fill."""
+    """The binning's time and how its tiles' lists fill."""
     from d3human_tpu_torch.ops import raster_resolve as rr
     from d3human_tpu_torch.ops.rasterizer import bin_faces
 
+    lens = (binned.starts[1:] - binned.starts[:-1]).long()
+    nb = int(binned.n_big)
     return dict(
         bin_faces_ms=cuda_ms(lambda: bin_faces(v_clip, faces, fvalid, res)),
-        copy_rows_per_slot_ms=graph_ms(lambda: binned.tile_rows),
-        copied_bytes=binned.tile_rows.numel() * 4,
-        longest_list=int((binned.starts[1:] - binned.starts[:-1]).max()),
-        n_global=int(binned.global_range[1]),
-        tiles_with_faces=int((binned.counts > 0).sum()),
-        tiles_over_128_slots=int((binned.counts > 128).sum()),
-        tiles_at_the_cap=int((binned.counts == binned.global_range[0]).sum()),
-        cta_with_work=int((-(-binned.counts // rr.CHUNK)).sum()))
+        longest_list=int(lens.max()), n_global=nb,
+        tiles_with_faces=int((lens > 0).sum()),
+        tiles_over_128_slots=int((lens > 128).sum()),
+        tiles_past_the_old_cut=int((lens > 896).sum()),
+        chunks=int((-(-lens // rr.CHUNK)).sum())
+        + binned.grid[2] * -(-nb // rr.CHUNK))
 
 
-def check_resolve(binned, n_faces: int, floor=None):
-    """The tile resolve on one binning, both forms of the launch (the main
-    path's, rows by face id over the live ranges, and the parity form,
-    copied rows over all slots), each exactly equal to the plain FULL scan
-    of the copied rows, so a wrong live count cannot hide. Returns (the
-    main form's keys, its report with times and bound)."""
+def check_resolve(binned, floor=None):
+    """The tile resolve on one binning: the kernel's keys exactly equal to
+    its plain version's and to its own on a second call, and the (slot,
+    tile) pairs it counts on the device equal to the plain version's.
+    Returns (the keys, a report with times and the bound: 18 f32
+    operations per pair and pixel, 19 with a floor, at the card's f32
+    rate, or the rows' bytes if more)."""
     import torch
 
     from d3human_tpu_torch.ops import raster_resolve as rr
 
     tile = (8, 128)
     _, ntx, NT = binned.grid
-    tile_rows = binned.tile_rows                    # [NT, M, 16] copied rows
-    M = tile_rows.shape[1]
     Ppix = tile[0] * tile[1]
-    ranges = dict(counts=binned.counts, global_range=binned.global_range)
-    live_slots = int((binned.all_faces < n_faces).sum())
-    want = rr.resolve_tiles_plain(tile_rows, tile, ntx, floor=floor)
-    # one call, as the scatter's: the plain scan ran just above
-    plain_ms = cuda_ms(lambda: rr.resolve_tiles_plain(
-        tile_rows, tile, ntx, floor=floor), reps=1, warm=0)
-    plain_ranges = rr.resolve_tiles_plain(tile_rows, tile, ntx,
-                                          floor=floor, **ranges)
-    check(torch.equal(plain_ranges, want),
-          "resolve: the plain version with ranges != its full scan")
-    forms = {
-        "rows by face id, live ranges": lambda: rr.resolve_tiles_indexed(
-            binned.rows, binned.all_faces, tile, ntx, floor=floor,
-            **ranges),
-        "copied rows, all slots": lambda: rr.resolve_tiles(
-            tile_rows, tile, ntx, floor=floor),
-    }
-    main = forms["rows by face id, live ranges"]
-    times = {}
-    for name, fn in forms.items():
-        got = fn()
-        check(torch.equal(got, want), f"resolve ({name}): kernel != "
-              f"plain full scan ({int((got != want).sum())} keys differ)")
-        times[name] = graph_ms(fn)
-    got = main()
+    args = (binned.rows, binned.faces, binned.starts, binned.big_base,
+            binned.n_big, tile, ntx)
+    dev = binned.rows.device
+
+    def pairs_of(fn):
+        rr.reset_pairs()
+        out = fn()
+        return out, int(rr.walked_pairs(dev))
+
+    want, pairs_plain = pairs_of(
+        lambda: rr.resolve_tiles_plain(*args, floor=floor))
+    # one call, as the scatter's: the plain version ran just above
+    plain_ms = cuda_ms(lambda: rr.resolve_tiles_plain(*args, floor=floor),
+                       reps=1, warm=0)
+    main = lambda: rr.resolve_tiles(*args, floor=floor)  # noqa: E731
+    got, pairs = pairs_of(main)
+    check(torch.equal(got, want), f"resolve: kernel != plain version "
+          f"({int((got != want).sum())} keys differ)")
+    check(torch.equal(main(), got), "resolve: a second call differs")
+    check(pairs == pairs_plain, f"resolve: {pairs} pairs counted, the plain "
+          f"version walked {pairs_plain}")
     check(bool((got != rr.MISS_KEY).any()), "resolve: no pixel covered")
-    # a live slot's 16-float row is read, a dead one needs only its flag;
-    # the floor read and one more compare per live slot and pixel
+    device_ms = graph_ms(main)
     peel = floor is not None
-    b, by = bound_ms(live_slots * 64 + (NT * M - live_slots) * 4
-                     + (2 if peel else 1) * NT * Ppix * 4,
-                     (19.0 if peel else 18.0) * live_slots * Ppix)
-    return got, dict(NT=NT, M=M, live_slots=live_slots,
+    lens = binned.starts[1:] - binned.starts[:-1]
+    b, by = bound_ms(pairs * 64 + (2 if peel else 1) * NT * Ppix * 8,
+                     (19.0 if peel else 18.0) * pairs * Ppix)
+    return got, dict(NT=NT, longest_list=int(lens.max()),
+                     n_global=int(binned.n_big), live_slots=pairs,
                      hit_pixels=int((got != rr.MISS_KEY).sum()),
-                     chunk=rr.CHUNK, pix=rr.PIX, ms=cuda_ms(main),
-                     device_ms=times["rows by face id, live ranges"],
-                     plain_ms=plain_ms, forms_device_ms=times, bound_ms=b,
-                     bound_by=by, max_abs_err=0.0)
+                     chunk=rr.CHUNK, ctas_per_tile=rr.NY, pix=rr.PIX,
+                     ms=cuda_ms(main), device_ms=device_ms,
+                     plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                     bound_share=b / device_ms, max_abs_err=0.0)
 
 
 def seq_kernel_inputs(sc: dict) -> dict:
@@ -1272,28 +1266,30 @@ def phase_kernels(sc: dict) -> list:
 
     # ---- tile resolve on the scene's own binning: exact keys
     emit("bin_faces", **binning_stats(binned, v_clip, faces, fvalid, res))
-    got, rs = check_resolve(binned, faces.shape[0])
+    got, rs = check_resolve(binned)
     # the seq template's binning (392k faces at the seq bench's size)
     sb = seq["binned"]
     seq_bin = binning_stats(sb, seq["v_clip"], sc["seq_template"].f,
                             seq["fvalid"], seq["res"])
-    _, rs_seq = check_resolve(sb, sc["seq_template"].f.shape[0])
+    _, rs_seq = check_resolve(sb)
     emit("kernel_resolve", exact=True, **rs,
          seq=dict(rs_seq, binning=seq_bin))
     rows.append(dict(name="resolve_tiles", route="cuda",
                      source="d3human_tpu_torch/csrc/raster_resolve.cu",
                      replaces="d3human_tpu/ops/pallas_raster.py:52",
-                     shape=f"NT={rs['NT']} M={rs['M']} P={8 * 128}",
+                     shape=(f"NT={rs['NT']} longest={rs['longest_list']} "
+                            f"pairs={rs['live_slots']} P={8 * 128}"),
                      **kernel_summary(rs), library_ms=None,
                      seq=dict(kernel_summary(rs_seq), library_ms=None,
-                              shape=(f"NT={rs_seq['NT']} M={rs_seq['M']} "
+                              shape=(f"NT={rs_seq['NT']} "
+                                     f"longest={rs_seq['longest_list']} "
                                      f"live={rs_seq['live_slots']}"))))
 
     # ---- the depth-peel step on the same rows: layer 0's keys as the
     # floor; exact keys, every hit strictly behind its floor, and a pixel
     # that missed in layer 0 misses again
     floor = got
-    got_p, ps = check_resolve(binned, faces.shape[0], floor=floor)
+    got_p, ps = check_resolve(binned, floor=floor)
     hit_p = got_p != rr.MISS_KEY
     check(bool(hit_p.any()), "resolve with floor: no second layer")
     check(bool((got_p[hit_p] > floor[hit_p]).all()),
@@ -1304,7 +1300,8 @@ def phase_kernels(sc: dict) -> list:
     rows.append(dict(name="resolve_tiles_peel", route="cuda",
                      source="d3human_tpu_torch/csrc/raster_resolve.cu",
                      replaces="d3human_tpu/ops/pallas_raster.py:58",
-                     shape=f"NT={ps['NT']} M={ps['M']} P={8 * 128} + floor",
+                     shape=(f"NT={ps['NT']} longest={ps['longest_list']} "
+                            f"pairs={ps['live_slots']} P={8 * 128} + floor"),
                      **kernel_summary(ps), library_ms=None))
     return rows
 
@@ -1419,8 +1416,9 @@ def validation_render(sc: dict, sign: float, generator=None):
 def check_validation(sc: dict, who: str, meshes, buf) -> dict:
     """A validation render's buffers and the layers it composited (the
     same rasterization made once more): finite images, each further layer
-    on fewer pixels, only where the layer before hit, behind it and on
-    another face. Returns the layers' pixel counts."""
+    on no more pixels (a closed surface's back covers its front's), only
+    where the layer before hit, behind it and on another face. Returns the
+    layers' pixel counts."""
     import torch
 
     from d3human_tpu_torch.ops.rasterizer import rasterize, xfm_points
@@ -1442,7 +1440,7 @@ def check_validation(sc: dict, who: str, meshes, buf) -> dict:
     n_hit = [int(h.sum()) for h in hit]
     for k in range(1, VAL_LAYERS):
         near, far = layers[k - 1], layers[k]
-        check(0 < n_hit[k] < n_hit[k - 1],
+        check(0 < n_hit[k] <= n_hit[k - 1],
               f"{who}: layer {k} covers {n_hit[k]} pixels, layer {k - 1} "
               f"{n_hit[k - 1]}")
         check(not bool((hit[k] & ~hit[k - 1]).any()),
@@ -2299,7 +2297,7 @@ def consistent_winding(faces) -> float:
 @contextlib.contextmanager
 def recording_kernel_inputs(tag=None):
     """While active, every call of the kernels' wrappers (first_k_indices,
-    coo_scatter_add, resolve_tiles_indexed) is recorded by call site,
+    coo_scatter_add, resolve_tiles) is recorded by call site,
     wherever the caller took the name from (``sys.monitoring`` on the
     wrappers' code, nothing patched). A scatter call's site is the first
     caller outside ``ops/scatter.py`` and torch (``mesh_ops.py:42`` for
@@ -2308,8 +2306,8 @@ def recording_kernel_inputs(tag=None):
     and ``peel`` when it has a floor. Yields {kernel: {site: {"calls": n,
     "args": a copy of the site's biggest call}}}: first_k's (mask, k,
     fill) with the largest (k, n), the scatter's (idx, vals, out_rows,
-    sorted) with the most values, the resolve's (rows, all_faces, ntx,
-    floor, counts, global_range) with the largest (F, slots); a kernel
+    sorted) with the most values, the resolve's (rows, faces, starts,
+    big_base, n_big, ntx, floor) with the largest (F, slots); a kernel
     never called has no key."""
     import torch
 
@@ -2320,8 +2318,7 @@ def recording_kernel_inputs(tag=None):
     seen = {}
     codes = {compaction.first_k_indices.__code__: "first_k_indices",
              scatter.coo_scatter_add.__code__: "coo_scatter_add",
-             raster_resolve.resolve_tiles_indexed.__code__:
-                 "resolve_tiles_indexed"}
+             raster_resolve.resolve_tiles.__code__: "resolve_tiles"}
     skip = (os.path.abspath(scatter.__file__),
             os.path.dirname(os.path.abspath(torch.__file__)))
 
@@ -2358,9 +2355,9 @@ def recording_kernel_inputs(tag=None):
         else:
             site += (f" {tag()}" if tag else "") + (
                 " peel" if a["floor"] is not None else "")
-            size, args = (a["rows"].shape[0], a["all_faces"].numel()), (
-                a["rows"], a["all_faces"], a["ntx"], a["floor"],
-                a["counts"], a["global_range"])
+            size, args = (a["rows"].shape[0], a["faces"].numel()), (
+                a["rows"], a["faces"], a["starts"], a["big_base"],
+                a["n_big"], a["ntx"], a["floor"])
         s = seen.setdefault(kernel, {}).setdefault(site, dict(calls=0,
                                                              size=None))
         s["calls"] += 1
@@ -2439,7 +2436,7 @@ def check_recorded(label: str, inputs: dict, gen) -> dict:
     from d3human_tpu_torch.ops.rasterizer import Binned
 
     out = {"first_k_indices": {}, "coo_scatter_add": {},
-           "resolve_tiles_indexed": {}}
+           "resolve_tiles": {}}
     for site, s in inputs.get("first_k_indices", {}).items():
         mask, k, fill = s["args"]
         check(fill == mask.numel(), f"first_k at {site}: fill {fill}")
@@ -2454,14 +2451,14 @@ def check_recorded(label: str, inputs: dict, gen) -> dict:
         r["recorded_rows"] = check_scatter_values(what, idx, vals, out_rows,
                                                   srt)
         out["coo_scatter_add"][site] = r
-    for site, s in inputs.get("resolve_tiles_indexed", {}).items():
-        rows, all_faces, ntx, floor, counts, global_range = s["args"]
-        NT = all_faces.shape[0]
-        binned = Binned(rows=rows, all_faces=all_faces, counts=counts,
-                        global_range=global_range, starts=None, n_big=None,
+    for site, s in inputs.get("resolve_tiles", {}).items():
+        rows, faces, starts, big_base, n_big, ntx, floor = s["args"]
+        NT = starts.shape[0] - 1
+        binned = Binned(rows=rows, faces=faces, starts=starts,
+                        big_base=big_base, n_big=n_big,
                         grid=(NT // ntx, ntx, NT))
-        _, r = check_resolve(binned, rows.shape[0] - 1, floor=floor)
-        out["resolve_tiles_indexed"][site] = dict(r, faces=rows.shape[0] - 1)
+        _, r = check_resolve(binned, floor=floor)
+        out["resolve_tiles"][site] = dict(r, faces=rows.shape[0] - 1)
     return out
 
 
@@ -2478,9 +2475,9 @@ def add_recorded_rows(rows: list, key: str, got: dict) -> None:
         for site, r in got["coo_scatter_add"].items()}
     for name, peel in (("resolve_tiles", False), ("resolve_tiles_peel", True)):
         res = {site: dict(kernel_summary(r), library_ms=None, shape=(
-            f"F={r['faces']} NT={r['NT']} M={r['M']} "
+            f"F={r['faces']} NT={r['NT']} longest={r['longest_list']} "
             f"live={r['live_slots']}"))
-            for site, r in got["resolve_tiles_indexed"].items()
+            for site, r in got["resolve_tiles"].items()
             if site.endswith(" peel") == peel}
         if res:
             by_name[name][key] = res
@@ -2500,7 +2497,7 @@ def phase_surgery_kernels(rows: list, inputs: dict, ssc: dict) -> None:
     F = ssc["seq_template"].f.shape[0]
     stats = binning_stats(seq["binned"], seq["v_clip"], ssc["seq_template"].f,
                           seq["fvalid"], seq["res"])
-    _, rs = check_resolve(seq["binned"], F)
+    _, rs = check_resolve(seq["binned"])
     emit("surgery_kernels", exact_first_k_and_resolve=True,
          scatter_tolerance="rel 1e-5 abs 1e-6",
          calls_by_site={k: {site: s["calls"] for site, s in v.items()}
@@ -2511,7 +2508,8 @@ def phase_surgery_kernels(rows: list, inputs: dict, ssc: dict) -> None:
     by_name = {r["name"]: r for r in rows}
     by_name["resolve_tiles"]["surgery_seq_step"] = dict(
         kernel_summary(rs), library_ms=None,
-        shape=(f"NT={rs['NT']} M={rs['M']} live={rs['live_slots']}"),
+        shape=(f"NT={rs['NT']} longest={rs['longest_list']} "
+               f"live={rs['live_slots']}"),
         n_global=stats["n_global"], longest_list=stats["longest_list"])
 
 
@@ -2522,10 +2520,10 @@ def phase_cli_kernels(rows: list, inputs: dict, key: str = "cli") -> None:
     phase ``<key>_kernels``. Adds to those kernels' rows a ``key`` entry
     (``cli`` for the synthetic run, ``capture`` for the capture's)."""
     check(set(inputs) == {"first_k_indices", "coo_scatter_add",
-                          "resolve_tiles_indexed"},
+                          "resolve_tiles"},
           f"{key}_kernels: recorded calls of {sorted(inputs)}")
     check(any(site.endswith(" seq") for site in inputs[
-        "resolve_tiles_indexed"]),
+        "resolve_tiles"]),
           f"{key}_kernels: no resolve call of the seq stage")
     phase_path_kernels(rows, inputs, key)
 
@@ -2543,7 +2541,7 @@ def phase_path_kernels(rows: list, inputs: dict, key: str) -> None:
          calls_by_site={k: {site: s["calls"] for site, s in v.items()}
                         for k, v in inputs.items()},
          first_k=got["first_k_indices"], scatter=got["coo_scatter_add"],
-         resolve=got["resolve_tiles_indexed"])
+         resolve=got["resolve_tiles"])
     add_recorded_rows(rows, key, got)
 
 
@@ -3064,7 +3062,7 @@ def phase_cli(scale: str, device: str, root: str,
                 for k, v in inputs.items()}
     counted = dict(first_k_indices=counts["calls"]["first_k_indices"],
                    coo_scatter_add=counts["calls"]["coo_scatter_add"],
-                   resolve_tiles_indexed=launches["resolve_tiles"]
+                   resolve_tiles=launches["resolve_tiles"]
                    + launches["resolve_tiles_peel"])
     check(not cuda or recorded == counted,
           f"{name}: recorded calls {recorded}, counted {counted}")

@@ -359,9 +359,10 @@ def _scalars(metrics: dict) -> dict:
 def kernel_line(device: torch.device, iters: int, counts: dict,
                 metrics: dict, seconds: dict) -> dict:
     """The stderr record of the timed loop: the device, each kernel's
-    launches and calls, the longest tile list of the last step (above
-    2.5 x 896 faces the JAX stage loop warns of truncated tiles) and
-    the seconds of the build, the warm-up and the timed loop."""
+    launches and calls, the longest tile list of the last step (the
+    JAX package's binning cuts a list at 896 faces; the port's cuts
+    none) and the seconds of the build, the warm-up and the timed
+    loop."""
     if device.type == "cuda":
         kind, count = (torch.cuda.get_device_name(device),
                        torch.cuda.device_count())

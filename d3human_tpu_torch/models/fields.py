@@ -20,6 +20,7 @@ from typing import Optional, Sequence
 import torch
 
 from d3human_tpu_torch.ops.bias_softplus import bias_softplus100
+from d3human_tpu_torch.utils.consts import const
 from d3human_tpu_torch.utils.logging import span
 
 Params = dict
@@ -30,8 +31,7 @@ def posenc(x: torch.Tensor, n_freq: int) -> torch.Tensor:
     C * (2 * n_freq + 1), in the JAX package's interleaving."""
     if n_freq == 0:
         return x
-    freqs = torch.tensor([2.0 ** k for k in range(n_freq)], dtype=x.dtype,
-                         device=x.device)
+    freqs = const(tuple(2.0 ** k for k in range(n_freq)), x.device, x.dtype)
     xb = x[..., None, :] * freqs[:, None]                  # [..., n_freq, C]
     enc = torch.stack([torch.sin(xb), torch.cos(xb)], dim=-2)
     enc = enc.reshape(*x.shape[:-1], 2 * n_freq * x.shape[-1])

@@ -13,6 +13,7 @@ import torch
 
 from d3human_tpu_torch.models.smplx.model import SMPLXModel
 from d3human_tpu_torch.ops.knn import knn1
+from d3human_tpu_torch.utils.consts import const
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,8 +59,8 @@ class SMPLXDeformer:
         Rinv = torch.stack([c0, c1, c2], dim=-2) / det[..., None]
         tinv = -torch.einsum("...rc,...c->...r", Rinv, t)
         top = torch.cat([Rinv, tinv[..., :, None]], dim=-1)
-        bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=M.dtype,
-                              device=M.device).expand(top.shape[:-2] + (1, 4))
+        bottom = const((0.0, 0.0, 0.0, 1.0), M.device, M.dtype).expand(
+            top.shape[:-2] + (1, 4))
         return torch.cat([top, bottom], dim=-2)
 
     @staticmethod

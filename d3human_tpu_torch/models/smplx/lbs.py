@@ -10,6 +10,7 @@ from typing import Optional, Tuple
 import torch
 
 from d3human_tpu_torch.ops.scatter import gather_rows
+from d3human_tpu_torch.utils.consts import const
 
 
 def batch_rodrigues(rot_vecs: torch.Tensor,
@@ -30,8 +31,8 @@ def batch_rodrigues(rot_vecs: torch.Tensor,
 def transform_mat(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """R [..., 3, 3], t [..., 3] -> homogeneous [..., 4, 4]."""
     top = torch.cat([R, t[..., :, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
-                          device=R.device).expand(top.shape[:-2] + (1, 4))
+    bottom = const((0.0, 0.0, 0.0, 1.0), R.device, R.dtype).expand(
+        top.shape[:-2] + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 
 
@@ -43,8 +44,8 @@ def batch_rigid_transform(rot_mats: torch.Tensor, joints: torch.Tensor,
     # the parents' joints by a row gather (a joint is the parent of several:
     # the backward adds in the scatter's fixed order)
     by_joint = joints.transpose(0, 1).reshape(J, B * 3)
-    parent_joints = gather_rows(by_joint, torch.tensor(
-        parents[1:], device=joints.device)).reshape(J - 1, B, 3)
+    parent_joints = gather_rows(by_joint, const(
+        parents[1:], joints.device)).reshape(J - 1, B, 3)
     rel_joints = joints - torch.cat(
         [torch.zeros_like(joints[:, :1]), parent_joints.transpose(0, 1)],
         dim=1)

@@ -32,6 +32,7 @@ import torch
 from d3human_tpu_torch.ops.compaction import first_k_indices
 from d3human_tpu_torch.ops.scatter import coo_scatter_add, gather_rows
 from d3human_tpu_torch.ops.tet_grid import EDGE_CLASSES, KUHN_PATHS, TetGrid
+from d3human_tpu_torch.utils.consts import const
 
 # level-1 tables (16 sign cases over the 6 tet edges; case bit i = occ(v_i))
 TRIANGLE_TABLE = np.asarray([
@@ -154,7 +155,7 @@ class GShellMesh(NamedTuple):
 
 
 def _table(a, device):
-    return torch.as_tensor(a, device=device)
+    return const(a, device)
 
 
 def _structured_crossing(occ3: torch.Tensor) -> torch.Tensor:
@@ -259,7 +260,7 @@ def _gshell_level1(grid: TetGrid, pos: torch.Tensor, sdf: torch.Tensor,
     tet_slots_c = tet_slots.clamp(0, T - 1).long()
     tets_c = grid.tets[tet_slots_c].long()                     # [MT, 4]
     occ4 = occ[tets_c]
-    powers = torch.tensor([1, 2, 4, 8], device=dev)
+    powers = const((1, 2, 4, 8), dev)
     tcase = (occ4.long() * powers).sum(-1)
     tcase = torch.where(tet_ok, tcase, 0)
     idx_map = edge2slot[grid.tet_edges[tet_slots_c].long()]     # [MT, 6]
@@ -317,8 +318,8 @@ def _gshell_level2(lv1: dict, msdf_sign: float) -> GShellMesh:
     msdf_wt_stop = msdf_sign * lv1["msdf_wt_stop"]
 
     mocc = (m_c > 0).long()
-    mi_tri = (mocc * torch.tensor([4, 2, 1, 0], device=dev)).sum(-1)
-    mi_quad = (mocc * torch.tensor([8, 4, 2, 1], device=dev)).sum(-1)
+    mi_tri = (mocc * const((4, 2, 1, 0), dev)).sum(-1)
+    mi_quad = (mocc * const((8, 4, 2, 1), dev)).sum(-1)
     n_cut = torch.where(is_quad, _table(NUM_QUAD_CUT, dev).long()[mi_quad],
                         _table(NUM_TRI_CUT, dev).long()[mi_tri])
     n_cut = torch.where(tet_ok & (ntri > 0), n_cut, 0)

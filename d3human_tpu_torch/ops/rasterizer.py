@@ -4,12 +4,13 @@ the dense image for validation (counterpart of
 
 ``rasterize`` is hard visibility only (no gradients): per-face screen setup,
 tile binning by one stable sort of the int32 key ``(tile << 20) | zq`` that
-carries the face ids, a global list for oversize faces, and the per-tile
-resolve of ``ops/raster_resolve.py`` with the Pallas kernel's semantics
-(quantized-z then slot order), which reads the face rows through the slots'
-face ids and walks each tile's live slots only. ``layers > 1`` depth-peels:
-the binning runs once and the resolve repeats with the previous layer's keys
-as the floor.
+carries the face ids, a list of the oversize faces that every tile shares,
+and the per-tile resolve of ``ops/raster_resolve.py`` (quantized-z then slot
+order), which walks each tile's whole list: nothing is cut, however many
+faces a tile holds. ``layers > 1`` depth-peels: the binning runs once and
+the resolve repeats with the previous layer's keys as the floor. It runs
+inside the profiler ranges ``d3h.render.rasterize`` (``.bin``,
+``.resolve``).
 ``rasterize_bruteforce`` is the oracle: every pixel tests every live face
 through ``_resolve_tile``, which orders by float (z, id) as the JAX
 package's XLA path does (a pixel chunk skips the faces whose bounding box
@@ -35,11 +36,12 @@ import torch
 
 from d3human_tpu_torch.ops.compaction import first_k_indices
 from d3human_tpu_torch.ops.raster_resolve import (
-    pack_face_rows, resolve_tiles_indexed, unpack_keys,
+    pack_face_rows, resolve_tiles, unpack_keys,
 )
 from d3human_tpu_torch.ops.scatter import (
     coo_scatter_add, gather_rows, scatter_rows_sorted, segment_add_rows,
 )
+from d3human_tpu_torch.utils.logging import span
 
 
 class Rast(NamedTuple):
@@ -50,25 +52,17 @@ class Rast(NamedTuple):
 
 
 class Binned(NamedTuple):
-    """Rasterizer setup: what the tile resolve consumes. A tile's live
-    slots are ``[0, counts[t])`` (its own list, near to far) and
-    ``[g0, g0 + n_global)`` with ``(g0, n_global) = global_range`` (the
-    shared list of oversize faces, live ones first); every other slot holds
-    face id F, the zero row."""
+    """Rasterizer setup: what the tile resolve consumes. Tile t's list is
+    ``faces[starts[t]:starts[t+1]]`` (its own faces, near to far) and then
+    ``faces[big_base:big_base + n_big]`` (the oversize faces, nearest
+    first, shared by every tile)."""
 
     rows: torch.Tensor        # [F+1, 16] fused face rows; row F is zero
-    all_faces: torch.Tensor   # [NT, M] int32 face id per slot (F = dead)
-    counts: torch.Tensor      # [NT] int32 slots of each tile's own list
-    global_range: Tuple[int, torch.Tensor]  # (g0, n_global int32 tensor)
-    starts: torch.Tensor      # [NT+1] per-tile ranges in the sorted pairs
-    n_big: torch.Tensor       # oversize face count
+    faces: torch.Tensor       # [F*K + F] int32 the flat list of face ids
+    starts: torch.Tensor      # [NT+1] int32 each tile's own list
+    big_base: int             # F*K: where the shared list starts
+    n_big: torch.Tensor       # int32 oversize face count
     grid: Tuple[int, int, int]   # (nty, ntx, NT)
-
-    @property
-    def tile_rows(self) -> torch.Tensor:
-        """[NT, M, 16]: one copied row per slot, for ``resolve_tiles``;
-        ``rasterize`` reads the rows through ``all_faces`` instead."""
-        return self.rows[self.all_faces.long()]
 
 
 def xfm_points(points: torch.Tensor, mtx: torch.Tensor) -> torch.Tensor:
@@ -93,7 +87,7 @@ def _screen_xy(verts_clip: torch.Tensor, res: Tuple[int, int]):
 def _edge_coeffs(pix_xy: torch.Tensor):
     """E_k(p) = A_k . p + C_k for edge k = corner k -> k+1."""
     v0 = pix_xy
-    v1 = pix_xy[:, [1, 2, 0]]
+    v1 = torch.roll(pix_xy, -1, dims=1)
     d = v1 - v0
     A = torch.stack([-d[..., 1], d[..., 0]], dim=-1)
     C = d[..., 1] * v0[..., 0] - d[..., 0] * v0[..., 1]
@@ -115,9 +109,10 @@ def _z_plane(pix_xy: torch.Tensor, z: torch.Tensor):
 
 def bin_faces(verts_clip: torch.Tensor, faces: torch.Tensor,
               face_valid: torch.Tensor, resolution: Tuple[int, int],
-              tile: Tuple[int, int] = (8, 128), max_faces_per_tile: int = 896,
-              bin_expand: int = 8, max_global: int = 128) -> Binned:
-    """Face setup + tile binning (``rasterize`` up to the resolve)."""
+              tile: Tuple[int, int] = (8, 128), bin_expand: int = 8) -> Binned:
+    """Face setup + tile binning (``rasterize`` up to the resolve): a live
+    face whose bounding box spans at most ``bin_expand`` tiles joins the
+    list of each, every other live face the shared list."""
     verts_clip = verts_clip.detach()
     dev = verts_clip.device
     H, W = resolution
@@ -151,9 +146,9 @@ def bin_faces(verts_clip: torch.Tensor, faces: torch.Tensor,
     tx0, tx1 = tcoord(xmin, tw, ntx), tcoord(xmax, tw, ntx)
     ty0, ty1 = tcoord(ymin, th, nty), tcoord(ymax, th, nty)
     sx = tx1 - tx0 + 1
-    span = sx * (ty1 - ty0 + 1)
-    small = live & (span <= bin_expand)
-    big = live & (span > bin_expand)
+    span_t = sx * (ty1 - ty0 + 1)
+    small = live & (span_t <= bin_expand)
+    big = live & (span_t > bin_expand)
 
     K = bin_expand
     k = torch.arange(K, dtype=torch.int32, device=dev)
@@ -161,84 +156,63 @@ def bin_faces(verts_clip: torch.Tensor, faces: torch.Tensor,
     pair_tile = ((ty0[:, None] + torch.div(k[None, :], sxc,
                                            rounding_mode="floor")) * ntx
                  + (tx0[:, None] + k[None, :] % sxc))
-    pair_ok = small[:, None] & (k[None, :] < span[:, None])
+    pair_ok = small[:, None] & (k[None, :] < span_t[:, None])
     pair_tile = torch.where(pair_ok, pair_tile, NT).to(torch.int32)
-    # key (tile | nearest zq): within a tile the list is near-to-far, so an
-    # overflowing tile drops its farthest faces; the stable sort carries
-    # the face ids (pair p belongs to face p // K)
+    # key (tile | nearest zq): within a tile the list is near-to-far, ties
+    # in face order; the stable sort carries the face ids (pair p belongs
+    # to face p // K)
     zq = torch.clamp((zw.min(dim=1).values + 1.0) * (0.5 * ((1 << 20) - 1)),
                      0.0, float((1 << 20) - 1)).to(torch.int32)
     key = ((pair_tile << 20) | zq[:, None]).reshape(-1)
     s_key, order = torch.sort(key, stable=True)
     s_face = torch.div(order, K, rounding_mode="floor").to(torch.int32)
-    s_tile = (s_key >> 20).contiguous()
     starts = torch.searchsorted(
-        s_tile, torch.arange(NT + 1, dtype=torch.int32, device=dev))
-    MFPT = max_faces_per_tile
-    slot = torch.arange(MFPT, device=dev)
-    gpos = starts[:NT, None] + slot[None, :]
-    in_list = gpos < starts[1:, None]
-    gpos = gpos.clamp(0, F * K - 1)
-    tile_faces = torch.where(in_list, s_face[gpos], F)           # [NT, MFPT]
-    counts = (starts[1:] - starts[:-1]).clamp(max=MFPT).to(torch.int32)
-
-    # global (oversize) list, nearest first
+        (s_key >> 20).contiguous(),
+        torch.arange(NT + 1, dtype=torch.int32, device=dev), out_int32=True)
+    # the shared list of oversize faces, nearest first (the live ones lead)
     big_key = torch.where(big, zq, 1 << 30)
-    big_idx = torch.argsort(big_key, stable=True)[:max_global]
-    big_ok = big_key[big_idx] < (1 << 30)
-    if big_idx.shape[0] < max_global:
-        pad = max_global - big_idx.shape[0]
-        big_idx = torch.cat([big_idx, torch.zeros(
-            (pad,), dtype=big_idx.dtype, device=dev)])
-        big_ok = torch.cat([big_ok, torch.zeros(
-            (pad,), dtype=torch.bool, device=dev)])
-    big_faces = torch.where(big_ok, big_idx.clamp(0, F - 1), F)
-
-    all_faces = torch.cat([tile_faces,
-                           big_faces.to(torch.int32)[None].expand(NT, -1)],
-                          dim=1)
-    pad = (-all_faces.shape[1]) % 128
-    if pad:
-        all_faces = torch.cat([all_faces, torch.full(
-            (NT, pad), F, dtype=all_faces.dtype, device=dev)], dim=1)
+    big_idx = torch.argsort(big_key, stable=True).to(torch.int32)
     rows = pack_face_rows(A, C, az, bz, cz, live)
     rows = torch.cat([rows, torch.zeros((1, rows.shape[1]),
                                         dtype=rows.dtype, device=dev)])
-    return Binned(rows=rows, all_faces=all_faces, counts=counts,
-                  global_range=(MFPT, big_ok.sum().to(torch.int32)),
-                  starts=starts, n_big=big.sum(), grid=(nty, ntx, NT))
+    return Binned(rows=rows, faces=torch.cat([s_face, big_idx]),
+                  starts=starts, big_base=F * K,
+                  n_big=big.sum().to(torch.int32), grid=(nty, ntx, NT))
 
 
 def rasterize(verts_clip: torch.Tensor, faces: torch.Tensor,
               face_valid: torch.Tensor, resolution: Tuple[int, int],
-              tile: Tuple[int, int] = (8, 128), max_faces_per_tile: int = 896,
-              bin_expand: int = 8, max_global: int = 128, layers: int = 1):
+              tile: Tuple[int, int] = (8, 128), bin_expand: int = 8,
+              layers: int = 1):
     """Tile-binned z-buffer rasterization (hard visibility, no gradients).
 
-    ``layers > 1`` depth-peels: layer k+1 is each pixel's nearest covering
-    face whose key lies strictly above layer k's, so a pixel that misses
-    in one layer misses in all later ones. Returns a tuple of ``Rast``
-    near-to-far when ``layers > 1``, a single ``Rast`` otherwise."""
+    Exact: a pixel keeps the least (quantized z, slot) over every live face
+    that covers it. ``layers > 1`` depth-peels: layer k+1 is each pixel's
+    nearest covering face whose key lies strictly above layer k's, so a
+    pixel that misses in one layer misses in all later ones. Returns a
+    tuple of ``Rast`` near-to-far when ``layers > 1``, a single ``Rast``
+    otherwise."""
     H, W = resolution
     th, tw = tile
-    b = bin_faces(verts_clip, faces, face_valid, resolution, tile,
-                  max_faces_per_tile, bin_expand, max_global)
-    nty, ntx, NT = b.grid
-    tile_faces = b.all_faces.clamp(max=faces.shape[0] - 1)
-    n_max_tile = (b.starts[1:] - b.starts[:-1]).max()
+    with span("d3h.render.rasterize"):
+        with span("d3h.render.rasterize.bin"):
+            b = bin_faces(verts_clip, faces, face_valid, resolution, tile,
+                          bin_expand)
+            n_max_tile = (b.starts[1:] - b.starts[:-1]).max()
+        nty, ntx, NT = b.grid
 
-    def untile(x):
-        return x.reshape(nty, ntx, th, tw).permute(0, 2, 1, 3).reshape(
-            nty * th, ntx * tw)[:H, :W]
+        def untile(x):
+            return x.reshape(nty, ntx, th, tw).permute(0, 2, 1, 3).reshape(
+                nty * th, ntx * tw)[:H, :W]
 
-    rasts, keys = [], None
-    for _ in range(layers):
-        keys = resolve_tiles_indexed(b.rows, b.all_faces, tile, ntx,
-                                     floor=keys, counts=b.counts,
-                                     global_range=b.global_range)
-        ids, zs = unpack_keys(keys, tile_faces)
-        rasts.append(Rast(tri_id=untile(ids), zbuf=untile(zs),
-                          n_max_tile=n_max_tile, n_big=b.n_big))
+        rasts, keys = [], None
+        with span("d3h.render.rasterize.resolve"):
+            for _ in range(layers):
+                keys = resolve_tiles(b.rows, b.faces, b.starts, b.big_base,
+                                     b.n_big, tile, ntx, floor=keys)
+                ids, zs = unpack_keys(keys, b.faces)
+                rasts.append(Rast(tri_id=untile(ids), zbuf=untile(zs),
+                                  n_max_tile=n_max_tile, n_big=b.n_big))
     return rasts[0] if layers == 1 else tuple(rasts)
 
 

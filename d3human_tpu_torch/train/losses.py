@@ -43,6 +43,7 @@ from d3human_tpu_torch.ops.marching_tets import sdf_reg_loss
 from d3human_tpu_torch.ops.scatter import coo_scatter_add, gather_rows
 from d3human_tpu_torch.render import regularizer
 from d3human_tpu_torch.render.pipeline import MeshBuffers, render_mesh
+from d3human_tpu_torch.utils.consts import const
 
 
 def _huber_sum(x: torch.Tensor, target: float, mask=None) -> torch.Tensor:
@@ -76,7 +77,7 @@ def eikonal_loss(model: GeometryModel, params, pts: torch.Tensor, it: int,
 
 def _normal_images(buffers: MeshBuffers, normal_ref: torch.Tensor):
     """Unit normals with the reference's y/z negation, mapped to [0, 1]."""
-    flip = torch.tensor([1.0, -1.0, -1.0], device=normal_ref.device)
+    flip = const((1.0, -1.0, -1.0), normal_ref.device)
     out_n = mesh_ops.safe_normalize(buffers.geometric_normal[..., 0:3]) * flip
     ref_n = mesh_ops.safe_normalize(normal_ref[..., 0:3])
     return (out_n + 1.0) / 2.0, (ref_n + 1.0) / 2.0

@@ -61,27 +61,14 @@ def _scalars(metrics: Dict) -> Dict[str, float]:
     return out
 
 
-def _warn_capacity(stage: str, scalars: Dict[str, float]) -> None:
-    """Loud warnings for absurd loss scalars (a NaN, an overflow or a
-    corrupted read-back) and for raster capacity past its validated
-    regime."""
+def _warn_absurd(stage: str, scalars: Dict[str, float]) -> None:
+    """A loud warning for absurd loss scalars (a NaN, an overflow or a
+    corrupted read-back)."""
     absurd = {k: v for k, v in scalars.items()
               if ("loss" in k or k == "total") and not (abs(v) < 1e9)}
     if absurd:
         print(f"[{stage}] WARNING: absurd loss scalars {absurd}: suspect "
               "corrupted readback or numerical blowup", flush=True)
-    nmt = max((v for k, v in scalars.items() if k.endswith("n_max_tile")),
-              default=0)
-    if nmt > 2.5 * 896:
-        print(f"[{stage}] WARNING: per-tile face count {nmt:.0f} exceeds "
-              "validated truncation regime (2.5x 896); raster coverage may "
-              "be wrong: raise max_faces_per_tile", flush=True)
-    nbig = max((v for k, v in scalars.items() if k.endswith("n_big_faces")),
-               default=0)
-    if nbig > 128:
-        print(f"[{stage}] WARNING: {nbig:.0f} oversize faces exceed the 128-"
-              "slot global raster list; near-camera geometry may be "
-              "dropped: raise max_global", flush=True)
 
 
 def run_stage(stage: str, n_iters: int, state: TrainState, step_fn,
@@ -151,7 +138,7 @@ def run_stage(stage: str, n_iters: int, state: TrainState, step_fn,
             print(f"[{stage}] iter={it:5d} total={scalars['total']:.4f} "
                   f"time={timer.avg_ms:.1f}ms rem={timer.eta(n_iters - it)}",
                   flush=True)
-            _warn_capacity(stage, scalars)
+            _warn_absurd(stage, scalars)
         if it % every == 0 and it != 0:
             save_state(os.path.join(save_path, "ckp", f"state_{it}.npz"),
                        state)

@@ -54,7 +54,8 @@ def test_chip_smoke_cli_recorded_inputs(cli_run):
     and each record is held to its plain version as that phase holds the
     kernel (the scatter's recorded rows within rel 1e-5 / abs 1e-6 of the
     plain version and the float32 bound of the float64 sum, the resolve's
-    plain live ranges equal to its full scan, first_k equal to
+    walk of each tile's list alone equal to its walk in chunks of tiles and,
+    without a floor, to the benchmark's plain reference, first_k equal to
     ``torch.nonzero`` + pad)."""
     import chip_smoke
     from d3human_tpu_torch.ops import compaction
@@ -62,14 +63,14 @@ def test_chip_smoke_cli_recorded_inputs(cli_run):
 
     inputs = cli_run["inputs"]
     assert set(inputs) == {"first_k_indices", "coo_scatter_add",
-                           "resolve_tiles_indexed"}
+                           "resolve_tiles"}
     files = {k: {site.split(":")[0] for site in v} for k, v in inputs.items()}
     assert files["first_k_indices"] >= {"marching_tets.py", "rasterizer.py"}
     # the normals' segment add by its caller, the gathers' backward by its
     # own line
     assert files["coo_scatter_add"] >= {"mesh_ops.py", "scatter.py",
                                         "rasterizer.py", "marching_tets.py"}
-    stages = {site.split()[1] for site in inputs["resolve_tiles_indexed"]}
+    stages = {site.split()[1] for site in inputs["resolve_tiles"]}
     assert stages >= {"split_smpl", "init", "split", "seq"}
     for site, s in inputs["first_k_indices"].items():
         mask, k, fill = s["args"]
@@ -82,13 +83,40 @@ def test_chip_smoke_cli_recorded_inputs(cli_run):
     for site, s in inputs["coo_scatter_add"].items():
         r = chip_smoke.check_scatter_values(site, *s["args"])
         assert r["bitwise"], site
-    for site, s in inputs["resolve_tiles_indexed"].items():
-        rows, all_faces, ntx, floor, counts, global_range = s["args"]
-        copied = rows[all_faces.long()]
-        assert torch.equal(
-            rr.resolve_tiles_indexed(rows, all_faces, (8, 128), ntx, floor,
-                                     counts, global_range),
-            rr.resolve_tiles_plain(copied, (8, 128), ntx, floor)), site
+    for site, s in inputs["resolve_tiles"].items():
+        rows, faces, starts, big_base, n_big, ntx, floor = s["args"]
+        args = (rows, faces, starts, big_base, n_big, (8, 128), ntx)
+        got = rr.resolve_tiles(*args, floor)
+        # each tile walking its own list alone, not padded to the longest
+        # list of its chunk of tiles
+        assert torch.equal(got, rr.resolve_tiles_plain(
+            *args, floor, tiles_per_chunk=1)), site
+        if floor is None:
+            assert torch.equal(got, reference_keys(*args)), site
+
+
+def reference_keys(rows, faces, starts, big_base, n_big, tile, ntx):
+    """The same keys from the benchmark's plain reference resolve: each
+    tile's list laid out as slots (its own faces, then the shared ones),
+    the winners' slots put back as positions in ``faces``."""
+    from d3h_bench.reference.ops.raster_resolve import MISS, resolve
+    from d3human_tpu_torch.ops.raster_resolve import MISS_KEY
+
+    st = starts.long()
+    lens = st[1:] - st[:-1]
+    NT, m_own, nb = lens.shape[0], max(int(lens.max()), 1), int(n_big)
+    slot = torch.arange(m_own)[None, :]
+    own = torch.where(slot < lens[:, None],
+                      faces[(st[:-1, None] + slot).clamp(
+                          max=faces.shape[0] - 1)], rows.shape[0] - 1)
+    glob = faces[big_base:big_base + nb][None].expand(NT, -1)
+    slot_faces = torch.cat([own, glob], dim=1)
+    ranges = [[(0, m_own)] + ([(m_own, m_own + nb)] if nb else [])
+              for _ in range(0, NT, 16)]
+    keys = resolve(rows, slot_faces, ranges, tile, ntx)
+    s = keys & 0xFFFFFFFF
+    pos = torch.where(s < m_own, st[:-1, None] + s, big_base + s - m_own)
+    return torch.where(keys == MISS, MISS_KEY, ((keys >> 32) << 32) | pos)
 
 
 @pytest.fixture(scope="module")

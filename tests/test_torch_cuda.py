@@ -23,10 +23,9 @@ def cuda_device():
     return "cuda"
 
 
-def _binned_rows(seed, F, res, tile, mfpt=256, bin_expand=8,
-                 max_global=128, small=0.0):
-    """Fused face rows of a random triangle soup, binned on the CPU.
-    ``small``: the share of faces shrunk to a tenth (many per tile)."""
+def _binned_rows(seed, F, res, tile, bin_expand=8, small=0.0):
+    """The binning of a random triangle soup, on the CPU. ``small``: the
+    share of faces shrunk to a tenth (many per tile)."""
     rng = np.random.default_rng(seed)
     xy = rng.uniform(-0.9, 0.9, (F, 3, 2))
     shrink = np.where(rng.random(F) < small, 0.1, 1.0)[:, None, None]
@@ -36,8 +35,7 @@ def _binned_rows(seed, F, res, tile, mfpt=256, bin_expand=8,
     faces = np.arange(3 * F, dtype=np.int32).reshape(F, 3)
     return bin_faces(torch.as_tensor(clip.reshape(3 * F, 4)),
                      torch.as_tensor(faces), torch.ones(F, dtype=torch.bool),
-                     res, tile=tile, max_faces_per_tile=mfpt,
-                     bin_expand=bin_expand, max_global=max_global)
+                     res, tile=tile, bin_expand=bin_expand)
 
 
 TB = compaction.TILE_BYTES   # mask bytes per CTA of the first_k kernel
@@ -192,76 +190,75 @@ def test_cuda_scatter_int64_idx_and_unaligned_vals(cuda_device):
 
 RESOLVE_SCENES = {
     "soup": dict(seed=5, F=400, res=(64, 256), tile=(8, 128)),
-    # tiles that overflow their own list, live faces in the shared list
-    "overflow": dict(seed=11, F=3000, res=(64, 256), tile=(8, 128), mfpt=128,
-                     bin_expand=1, max_global=128, small=0.9),
-    # narrow tiles: fewer threads than a block of rows has 16-byte pieces
-    "narrow": dict(seed=6, F=300, res=(32, 64), tile=(8, 16), mfpt=128),
+    # own lists past 1,024 slots and more than 128 live oversize faces
+    "long": dict(seed=11, F=6000, res=(16, 256), tile=(8, 128),
+                 bin_expand=1, small=0.9),
+    # narrow tiles: fewer threads than a chunk of rows has 16-byte pieces
+    "narrow": dict(seed=6, F=300, res=(32, 64), tile=(8, 16)),
     # tile heights that 4 does not divide: 2 pixels and 1 pixel a thread
     "two pixels": dict(seed=8, F=300, res=(36, 128), tile=(6, 64)),
     "one pixel": dict(seed=9, F=300, res=(35, 128), tile=(5, 64)),
 }
 
 
+def _on(b, dev):
+    return b._replace(rows=b.rows.to(dev), faces=b.faces.to(dev),
+                      starts=b.starts.to(dev), n_big=b.n_big.to(dev))
+
+
+def _resolve(fn, b, tile, floor=None):
+    """(keys, the (slot, tile) pairs counted) of one call."""
+    raster_resolve.reset_pairs()
+    keys = fn(b.rows, b.faces, b.starts, b.big_base, b.n_big, tile,
+              b.grid[1], floor=floor)
+    return keys, int(raster_resolve.walked_pairs(b.rows.device))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("peel", [False, True])
 @pytest.mark.parametrize("scene", sorted(RESOLVE_SCENES))
 def test_cuda_resolve_equals_plain(cuda_device, scene, peel):
-    """Every form of the kernel (copied rows or rows by face id, live
-    ranges or all slots) against the plain full scan: exact keys."""
+    """The kernel against its plain version on the same card tensors:
+    exact keys, the same bits on a second call, one launch a call (with
+    a floor: one floor launch), the same (slot, tile) pairs counted."""
     kw = RESOLVE_SCENES[scene]
     tile = kw["tile"]
-    b = _binned_rows(**kw)
-    if scene == "overflow":
-        assert int((b.starts[1:] - b.starts[:-1]).max()) > kw["mfpt"]
-        assert int(b.global_range[1]) > 0
-    ntx = b.grid[1]
-    tile_rows = b.tile_rows.to(cuda_device)
-    rows, all_faces = b.rows.to(cuda_device), b.all_faces.to(cuda_device)
-    ranges = dict(counts=b.counts.to(cuda_device), global_range=(
-        b.global_range[0], b.global_range[1].to(cuda_device)))
-    floor = (raster_resolve.resolve_tiles(tile_rows, tile, ntx)
+    b = _on(_binned_rows(**kw), cuda_device)
+    if scene == "long":
+        assert int((b.starts[1:] - b.starts[:-1]).max()) > 1024
+        assert int(b.n_big) > 128
+    floor = (_resolve(raster_resolve.resolve_tiles, b, tile)[0]
              if peel else None)
-    want = raster_resolve.resolve_tiles_plain(tile_rows, tile, ntx,
-                                              floor=floor)
+    want, want_pairs = _resolve(raster_resolve.resolve_tiles_plain, b, tile,
+                                floor)
     assert (want != raster_resolve.MISS_KEY).any()
     rt = raster_resolve.resolve_tiles
     before = (rt.launches, rt.floor_launches)
-    n = 0
-    for kwargs in [dict(), ranges]:
-        got = raster_resolve.resolve_tiles(tile_rows, tile, ntx, floor=floor,
-                                           **kwargs)
-        assert torch.equal(got, want), kwargs.keys()
-        got = raster_resolve.resolve_tiles_indexed(
-            rows, all_faces, tile, ntx, floor=floor, **kwargs)
-        assert torch.equal(got, want), kwargs.keys()
-        n += 2
+    got, pairs = _resolve(rt, b, tile, floor)
+    again, _ = _resolve(rt, b, tile, floor)
+    assert torch.equal(got, want) and torch.equal(again, got)
+    assert pairs == want_pairs > 0
     assert (rt.launches - before[0], rt.floor_launches - before[1]) == (
-        n, n if peel else 0)
-    assert torch.equal(want, raster_resolve.resolve_tiles_plain(
-        tile_rows, tile, ntx, floor=floor, **ranges))
+        2, 2 if peel else 0)
 
 
 @pytest.mark.cuda
 def test_cuda_resolve_all_miss_floor_leaves_early(cuda_device):
-    """A floor of MISS_KEY on every pixel lets nothing through."""
+    """A floor of MISS_KEY on every pixel lets nothing through, and no
+    tile is walked."""
     kw = RESOLVE_SCENES["soup"]
-    b = _binned_rows(**kw)
+    b = _on(_binned_rows(**kw), cuda_device)
     floor = torch.full((b.grid[2], 8 * 128), raster_resolve.MISS_KEY,
-                       dtype=torch.int32, device=cuda_device)
-    got = raster_resolve.resolve_tiles_indexed(
-        b.rows.to(cuda_device), b.all_faces.to(cuda_device), kw["tile"],
-        b.grid[1], floor=floor, counts=b.counts.to(cuda_device),
-        global_range=(b.global_range[0], b.global_range[1].to(cuda_device)))
-    assert torch.equal(got, floor)
+                       dtype=torch.int64, device=cuda_device)
+    got, pairs = _resolve(raster_resolve.resolve_tiles, b, kw["tile"], floor)
+    assert torch.equal(got, floor) and pairs == 0
 
 
 @pytest.mark.cuda
 def test_cuda_rasterize_layers_equal_plain(cuda_device, monkeypatch):
-    """``rasterize(layers=3)`` with the kernel (rows by face id, live
-    ranges) against the same peel loop over the plain full scan, on the
-    same card tensors: ids and depths of every layer exact, 3 launches of
-    which 2 with a floor."""
+    """``rasterize(layers=3)`` with the kernel against the same peel loop
+    over the plain version, on the same card tensors: ids and depths of
+    every layer exact, 3 launches of which 2 with a floor."""
     from d3human_tpu_torch.ops import rasterizer
 
     rng = np.random.default_rng(7)
@@ -278,11 +275,8 @@ def test_cuda_rasterize_layers_equal_plain(cuda_device, monkeypatch):
     before = (rt.launches, rt.floor_launches)
     got = rasterizer.rasterize(*args, layers=3)
     assert (rt.launches - before[0], rt.floor_launches - before[1]) == (3, 2)
-    monkeypatch.setattr(
-        rasterizer, "resolve_tiles_indexed",
-        lambda rows, all_faces, tile, ntx, floor=None, **ranges:
-        raster_resolve.resolve_tiles_plain(rows[all_faces.long()], tile, ntx,
-                                           floor))
+    monkeypatch.setattr(rasterizer, "resolve_tiles",
+                        raster_resolve.resolve_tiles_plain)
     want = rasterizer.rasterize(*args, layers=3)
     assert (rt.launches - before[0], rt.floor_launches - before[1]) == (3, 2)
     hits = [int((lay.tri_id > 0).sum()) for lay in got]
@@ -290,6 +284,33 @@ def test_cuda_rasterize_layers_equal_plain(cuda_device, monkeypatch):
     for a, b in zip(got, want):
         assert torch.equal(a.tri_id, b.tri_id)
         assert torch.equal(a.zbuf, b.zbuf)
+
+
+@pytest.mark.cuda
+def test_cuda_rasterize_equals_the_reference_at_long_lists(cuda_device):
+    """The port's rasterizer on the card against the benchmark's plain
+    reference (no capacity) in a scene whose lists pass 1,024 slots and
+    whose oversize faces pass 128: ids and depths exact."""
+    from d3h_bench.reference.ops import rasterizer as ref
+    from d3human_tpu_torch.ops import rasterizer
+
+    rng = np.random.default_rng(12)
+    F = 6000
+    xy = rng.uniform(-0.9, 0.9, (F, 3, 2))
+    shrink = np.where(rng.random(F) < 0.9, 0.1, 1.0)[:, None, None]
+    xy = xy[:, :1] + (xy - xy[:, :1]) * shrink
+    clip = np.concatenate([xy, rng.uniform(0.2, 0.8, (F, 3, 1)),
+                           np.ones((F, 3, 1))], -1).astype(np.float32)
+    args = (torch.as_tensor(clip.reshape(3 * F, 4)).to(cuda_device),
+            torch.arange(3 * F, dtype=torch.int32,
+                         device=cuda_device).reshape(F, 3),
+            torch.ones(F, dtype=torch.bool, device=cuda_device), (16, 256))
+    got = rasterizer.rasterize(*args, bin_expand=1)
+    want = ref.rasterize(*args, bin_expand=1)
+    assert int(got.n_max_tile) == int(want.n_max_tile) > 1024
+    assert int(got.n_big) == int(want.n_big) > 128
+    assert torch.equal(got.tri_id, want.tri_id.to(got.tri_id.dtype))
+    assert torch.equal(got.zbuf, want.zbuf)
 
 
 @pytest.mark.cuda

@@ -187,7 +187,7 @@ def test_chip_smoke_scene_rehearsal(tmp_path):
                                     "inclusive_scan", "bias_softplus100"}
     # the recorder saw every kernel's wrapper on the path
     assert set(pbr["inputs"]) == {"first_k_indices", "coo_scatter_add",
-                                  "resolve_tiles_indexed"}
+                                  "resolve_tiles"}
     msc = chip_smoke.mobilenet_scene(sc, "cpu")
     assert max(chip_smoke.mobilenet_features_err(msc, "cpu")) == 0.0
     for stage, key in (("init", "state"), ("split", "split_state")):

@@ -227,123 +227,204 @@ def test_segment_and_sorted_scatter_vjp_match_jax(sorted_unique):
 
 # ------------------------------------------------------------- resolve
 
-def _binned_rows(seed=3, F=60, res=(32, 64), tile=(8, 32), mfpt=64,
-                 bin_expand=8, max_global=64, small=0.0):
-    """Fused face rows of a random triangle soup, binned by the port.
+def _soup(seed=3, F=60, small=0.0):
+    """Clip-space corners [3F, 4] of a random triangle soup and its faces.
     ``small``: the share of faces shrunk to a tenth around their first
     corner (many faces per tile; the others stay large)."""
-    from d3human_tpu_torch.ops.rasterizer import bin_faces
-
     rng = np.random.default_rng(seed)
     xy = rng.uniform(-0.9, 0.9, (F, 3, 2))
     shrink = np.where(rng.random(F) < small, 0.1, 1.0)[:, None, None]
     xy = xy[:, :1] + (xy - xy[:, :1]) * shrink
     z = rng.uniform(0.2, 0.8, (F, 3, 1))
     clip = np.concatenate([xy, z, np.ones((F, 3, 1))], -1).astype(np.float32)
-    faces = np.arange(3 * F, dtype=np.int32).reshape(F, 3)
-    b = bin_faces(torch.as_tensor(clip.reshape(3 * F, 4)),
-                  torch.as_tensor(faces), torch.ones(F, dtype=torch.bool),
-                  res, tile=tile, max_faces_per_tile=mfpt,
-                  bin_expand=bin_expand, max_global=max_global)
-    return b
+    return clip.reshape(3 * F, 4), np.arange(3 * F, dtype=np.int32).reshape(
+        F, 3)
 
 
-# an overflowing tile (more faces than max_faces_per_tile) and live faces
-# in the shared list of oversize faces
-OVERFLOW = dict(seed=11, F=400, mfpt=32, bin_expand=2, max_global=96,
-                small=0.85)
+def _binned_rows(seed=3, F=60, res=(32, 64), tile=(8, 32), bin_expand=8,
+                 small=0.0):
+    """The port's binning of ``_soup``."""
+    from d3human_tpu_torch.ops.rasterizer import bin_faces
+
+    clip, faces = _soup(seed, F, small)
+    return bin_faces(torch.as_tensor(clip), torch.as_tensor(faces),
+                     torch.ones(F, dtype=torch.bool), res, tile=tile,
+                     bin_expand=bin_expand)
+
+
+def _lists(b):
+    """(each tile's own list, the shared list) of a binning, as ints."""
+    st = b.starts.tolist()
+    own = [b.faces[st[t]:st[t + 1]].tolist() for t in range(len(st) - 1)]
+    return own, b.faces[b.big_base:b.big_base + int(b.n_big)].tolist()
+
+
+def _slot_matrix(b, g0):
+    """The Pallas kernel's layout of the port's lists, cutting nothing:
+    [NT, M] face ids (F = the zero row), tile t's own list at slots
+    [0, n_t), the shared list at [g0, g0 + n_big), M a multiple of 128."""
+    own, glob = _lists(b)
+    F = b.rows.shape[0] - 1
+    assert max(map(len, own)) <= g0
+    M = max(128, -(-(g0 + len(glob)) // 128) * 128)
+    assert M <= 1024
+    m = torch.full((len(own), M), F, dtype=torch.int32)
+    for t, lst in enumerate(own):
+        m[t, :len(lst)] = torch.tensor(lst, dtype=torch.int32)
+    m[:, g0:g0 + len(glob)] = torch.tensor(glob, dtype=torch.int32)
+    return m
+
+
+def _as_pallas_keys(keys, b, g0):
+    """The port's int64 keys ``(zq << 32) | pos`` in the Pallas kernel's
+    int32 layout ``(zq << 10) | slot`` over ``_slot_matrix(b, g0)``."""
+    miss = keys == raster_resolve.MISS_KEY
+    zq, pos = keys >> 32, keys & 0xFFFFFFFF
+    first = b.starts.long()[:-1, None]
+    slot = torch.where(pos < b.big_base, pos - first,
+                       g0 + pos - b.big_base)
+    return torch.where(miss, (1 << 31) - 1, (zq << 10) | slot).to(
+        torch.int32)
+
+
+def _pallas(b, tile, g0, floor=None):
+    rows = b.rows[_slot_matrix(b, g0).long()]
+    return np.asarray(resolve_tiles_pallas(
+        jnp.asarray(rows.numpy()), tile, b.grid[1], interpret=True,
+        floor=None if floor is None else jnp.asarray(floor)))
+
+
+def _resolve(b, tile, floor=None, starts=None):
+    return raster_resolve.resolve_tiles(
+        b.rows, b.faces, b.starts if starts is None else starts, b.big_base,
+        b.n_big, tile, b.grid[1], floor=floor)
+
+
+# own lists longer than twice the old binning's 32-slot cut here, and
+# live faces in the shared list of oversize faces
+OVERFLOW = dict(seed=11, F=400, bin_expand=2, small=0.85)
 SCENES = {"soup": dict(), "overflow": OVERFLOW}
 
 
 @pytest.mark.parametrize("peel", [False, True])
 def test_resolve_plain_matches_pallas_interpret(peel):
-    """Keys bit for bit equal to the Pallas kernel in interpret mode, for
-    the floor-free kernel and one depth-peel step."""
+    """Keys, put in the Pallas kernel's layout, bit for bit equal to the
+    Pallas kernel in interpret mode, for the floor-free kernel and one
+    depth-peel step."""
     tile = (8, 32)
     b = _binned_rows(tile=tile)
-    ntx = b.grid[1]
-    rows = b.tile_rows
-    floor = None
+    g0 = max(map(len, _lists(b)[0]))
+    got = _resolve(b, tile)
+    want = _pallas(b, tile, g0)
     if peel:
-        floor = raster_resolve.resolve_tiles(rows, tile, ntx)
-    got = raster_resolve.resolve_tiles(rows, tile, ntx, floor=floor)
-    want = resolve_tiles_pallas(
-        jnp.asarray(rows.numpy()), tile, ntx, interpret=True,
-        floor=None if floor is None else jnp.asarray(floor.numpy()))
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        got = _resolve(b, tile, floor=got)
+        want = _pallas(b, tile, g0, floor=want)
+    np.testing.assert_array_equal(_as_pallas_keys(got, b, g0).numpy(), want)
     assert (got.numpy() != raster_resolve.MISS_KEY).mean() > 0.2
+
+
+def _want_lists(clip, faces, res, tile, bin_expand):
+    """Each tile's list and the shared list from the corners alone: a face
+    whose screen box meets at most ``bin_expand`` tiles joins each, near to
+    far by its nearest quantized depth, ties in face order; every other
+    face the shared list, in the same order."""
+    H, W = res
+    th, tw = tile
+    nty, ntx = -(-H // th), -(-W // tw)
+    tri = clip[faces]
+    x = (tri[..., 0] / tri[..., 3] * np.float32(0.5) + np.float32(0.5)) * W
+    y = (np.float32(0.5) - tri[..., 1] / tri[..., 3] * np.float32(0.5)) * H
+    zq = np.clip((tri[..., 2] / tri[..., 3]).min(1) + np.float32(1.0), 0,
+                 None) * np.float32(0.5 * ((1 << 20) - 1))
+    zq = np.minimum(zq, (1 << 20) - 1).astype(np.int64)
+    own, big = [[] for _ in range(nty * ntx)], []
+    for f in range(faces.shape[0]):
+        tx = np.clip(np.floor(np.array([x[f].min(), x[f].max()]) / tw), 0,
+                     ntx - 1).astype(int)
+        ty = np.clip(np.floor(np.array([y[f].min(), y[f].max()]) / th), 0,
+                     nty - 1).astype(int)
+        tiles = [j * ntx + i for j in range(ty[0], ty[1] + 1)
+                 for i in range(tx[0], tx[1] + 1)]
+        for t in (tiles if len(tiles) <= bin_expand else []):
+            own[t].append((zq[f], f))
+        if len(tiles) > bin_expand:
+            big.append((zq[f], f))
+    return [[f for _, f in sorted(lst)] for lst in own], \
+        [f for _, f in sorted(big)]
 
 
 @pytest.mark.parametrize("scene", sorted(SCENES))
 def test_bin_faces_ranges_are_the_live_slots(scene):
-    """``all_faces < F`` holds exactly on [0, counts[t]) and on
-    [g0, g0 + n_global)."""
-    kw = SCENES[scene]
+    """Each tile's range of the flat list is exactly its faces, near to
+    far, and the shared list exactly the oversize faces, nearest first:
+    nothing is cut, however long a list."""
+    kw = dict(SCENES[scene])
     b = _binned_rows(**kw)
-    F = b.rows.shape[0] - 1
-    NT, M = b.all_faces.shape
-    assert b.all_faces.dtype == torch.int32 and b.counts.dtype == torch.int32
-    g0, n_global = b.global_range
-    slot = torch.arange(M)[None, :]
-    want = (slot < b.counts[:, None]) | ((slot >= g0)
-                                         & (slot < g0 + int(n_global)))
-    assert torch.equal(b.all_faces < F, want)
-    assert torch.equal(want, raster_resolve._slot_in_range(
-        NT, M, b.counts, b.global_range, "cpu"))
-    longest = int((b.starts[1:] - b.starts[:-1]).max())
+    assert b.faces.dtype == torch.int32 and b.starts.dtype == torch.int32
+    F = kw.get("F", 60)
+    assert b.big_base == F * kw.get("bin_expand", 8)
+    clip, faces = _soup(kw.get("seed", 3), F, kw.get("small", 0.0))
+    own, glob = _lists(b)
+    want_own, want_glob = _want_lists(clip, faces, (32, 64), (8, 32),
+                                      kw.get("bin_expand", 8))
+    assert own == want_own and glob == want_glob
+    assert int(b.n_big) == len(want_glob)
+    longest = max(map(len, own))
     if scene == "overflow":
-        assert longest > kw["mfpt"] == int(b.counts.max()) == g0
-        assert 0 < int(n_global) <= kw["max_global"]
-        assert int(b.n_big) >= int(n_global)
+        # the old binning kept 32 own slots here and 96 shared ones
+        assert longest > 2 * 32 and len(glob) > 0
     else:
-        assert longest == int(b.counts.max()) and int(n_global) == 0
+        assert len(glob) == 0
 
 
 @pytest.mark.parametrize("peel", [False, True])
 @pytest.mark.parametrize("scene", sorted(SCENES))
 def test_resolve_ranges_match_full_scan_and_pallas(scene, peel):
-    """The plain version walking only the live ranges, as copied rows and
-    through the face ids, equals its full scan and the Pallas kernel in
-    interpret mode bit for bit."""
+    """The plain version walking each tile's whole list equals the Pallas
+    kernel in interpret mode over a slot matrix that holds those lists,
+    bit for bit, and counts the (slot, tile) pairs it walked."""
     tile = (8, 32)
     b = _binned_rows(**SCENES[scene])
-    ntx = b.grid[1]
-    rows = b.tile_rows
-    floor = None
+    own, glob = _lists(b)
+    g0 = max(map(len, own))
+    floor = pfloor = None
     if peel:
-        floor = raster_resolve.resolve_tiles_plain(rows, tile, ntx)
-    full = raster_resolve.resolve_tiles_plain(rows, tile, ntx, floor)
-    ranged = raster_resolve.resolve_tiles(
-        rows, tile, ntx, floor=floor, counts=b.counts,
-        global_range=b.global_range)
-    indexed = raster_resolve.resolve_tiles_indexed(
-        b.rows, b.all_faces, tile, ntx, floor=floor, counts=b.counts,
-        global_range=b.global_range)
-    want = resolve_tiles_pallas(
-        jnp.asarray(rows.numpy()), tile, ntx, interpret=True,
-        floor=None if floor is None else jnp.asarray(floor.numpy()))
-    np.testing.assert_array_equal(full.numpy(), np.asarray(want))
-    assert torch.equal(ranged, full) and torch.equal(indexed, full)
-    assert (full != raster_resolve.MISS_KEY).float().mean() > 0.03
+        floor, pfloor = _resolve(b, tile), _pallas(b, tile, g0)
+    counter = raster_resolve.walked_pairs("cpu")
+    before = int(counter)
+    got = _resolve(b, tile, floor=floor)
+    walk = [t for t in range(len(own)) if (own[t] or glob) and (
+        floor is None or bool((floor[t] != raster_resolve.MISS_KEY).any()))]
+    assert int(counter) - before == sum(len(own[t]) + len(glob)
+                                        for t in walk)
+    want = _pallas(b, tile, g0, floor=pfloor)
+    np.testing.assert_array_equal(_as_pallas_keys(got, b, g0).numpy(), want)
+    assert (got != raster_resolve.MISS_KEY).float().mean() > 0.03
     if scene == "overflow" and not peel:
-        # a face of the shared list wins somewhere: its slots count
-        g0 = b.global_range[0]
-        slot = full[full != raster_resolve.MISS_KEY] & 1023
-        assert bool((slot >= g0).any()) and bool((slot < g0).any())
-    # ranges that are too short must show: the check can fail
-    short = raster_resolve.resolve_tiles_plain(
-        rows, tile, ntx, floor, counts=b.counts // 2,
-        global_range=b.global_range)
-    assert not torch.equal(short, full)
+        # faces of both lists win somewhere, and own slots past the old cut
+        pos = got[got != raster_resolve.MISS_KEY] & 0xFFFFFFFF
+        assert bool((pos >= b.big_base).any())
+        slot = _as_pallas_keys(got, b, g0)[got != raster_resolve.MISS_KEY] \
+            & 1023
+        assert bool(((slot >= 32) & (slot < g0)).any())
+    # a walk that stops halfway along each list must show: the check can
+    # fail (the second half of each list pointed at the zero row)
+    cut = b._replace(faces=b.faces.clone())
+    st = b.starts.tolist()
+    for t in range(len(own)):
+        cut.faces[(st[t] + st[t + 1]) // 2:st[t + 1]] = b.rows.shape[0] - 1
+    assert not torch.equal(_resolve(cut, tile, floor=floor), got)
 
 
 def test_unpack_keys_matches_jax():
     from d3human_tpu.ops.pallas_raster import unpack_keys as jax_unpack
 
     b = _binned_rows(seed=4)
-    keys = raster_resolve.resolve_tiles(b.tile_rows, (8, 32), b.grid[1])
-    faces = b.all_faces.clamp(max=59)
-    tri, z = raster_resolve.unpack_keys(keys, faces)
-    jt, jz = jax_unpack(jnp.asarray(keys.numpy()), jnp.asarray(faces.numpy()))
+    g0 = max(map(len, _lists(b)[0]))
+    keys = _resolve(b, (8, 32))
+    tri, z = raster_resolve.unpack_keys(keys, b.faces)
+    slots = _slot_matrix(b, g0).clamp(max=59)
+    jt, jz = jax_unpack(jnp.asarray(_as_pallas_keys(keys, b, g0).numpy()),
+                        jnp.asarray(slots.numpy()))
     np.testing.assert_array_equal(tri.numpy(), np.asarray(jt))
     np.testing.assert_array_equal(z.numpy(), np.asarray(jz))

@@ -363,4 +363,4 @@ def test_chip_smoke_ref_grid_rehearsal(tmp_path):
     assert len(whole["init_ms"]) == chip_smoke.INIT_STEPS
     assert whole["counts"]["n_cross"] > 0
     assert set(whole["inputs"]) == {"first_k_indices", "coo_scatter_add",
-                                    "resolve_tiles_indexed"}
+                                    "resolve_tiles"}

@@ -591,7 +591,7 @@ def test_chip_smoke_parallel_rehearsal(tmp_path):
     assert dp["init"]["bitwise"] and dp["split"]["bitwise"]
     inputs = chip_smoke.merge_recorded(par["inputs"], dp["inputs"])
     assert set(inputs) == {"first_k_indices", "coo_scatter_add",
-                           "resolve_tiles_indexed"}
+                           "resolve_tiles"}
     w2 = chip_smoke.phase_parallel_world2(chip_smoke.world2_scene("cpu"),
                                           "cpu", str(tmp_path / "w2"),
                                           "tiny")

@@ -23,6 +23,12 @@ from torch_parity import (
 
 torch.set_num_threads(1)
 
+# the merged template's longest tile list here is 27,886 faces: the JAX
+# side gets a capacity that cuts nothing, on its XLA path (the Pallas
+# kernel holds 1,024 slots a tile)
+MERGE_JAX_RASTER_OPTS = dict(JAX_RASTER_OPTS, max_faces_per_tile=28672,
+                             backend="xla")
+
 
 @pytest.fixture(scope="module", autouse=True)
 def jax_engine_as_committed():
@@ -498,7 +504,7 @@ def test_seq_template_and_tick_on_the_merge_match_jax(split_small, route):
         jax.random.PRNGKey(KEY), j["model"], params["geometry"],
         params["pose"], j["tex"], params["material"], j["perceptual"],
         j["perc_params"], jt, j["target"], IT, j["cfg"],
-        JAX_RASTER_OPTS))(j["params"])
+        MERGE_JAX_RASTER_OPTS))(j["params"])
     draws = {"render": render_draws(jax.random.PRNGKey(KEY),
                                     *compact_draw_shapes(j["cfg"]))}
     own = build_seq_template(os.path.dirname(got_mesh["mesh"]), device="cpu")
