@@ -64,7 +64,16 @@ object per line (``t``: the script's seconds when the phase ended):
                give; the fields MLP's bias + softplus at a hidden layer
                and at the layer before the skip, at every grid vertex
                (forward bit for bit, backward within 1e-6, its bias
-               gradient bit for bit across two calls). Time of the
+               gradient bit for bit across two calls); the fields MLP's
+               products with the bias + softplus in their epilogue at the
+               fit's shapes (the input layer, a hidden layer, the skip
+               layer's rows of 295 padded to 296; the input gradient of a
+               hidden and of the skip layer, and the output layer's rank-1
+               one) and at the nonrigid DeformMLP's (its input layer of
+               136 + 51 at the grid and at the seq template's cloth and
+               body vertices, its skip layer, its 3-wide output layer's
+               input gradient), within LS_TOL of the plain product and
+               pass, each bit for bit across two calls. Time of the
                kernel's wrapper, of the plain version and
                of a library call computing the same function (CUDA events),
                and the wrapper's device time alone (CUDA-graph replays of
@@ -86,7 +95,8 @@ object per line (``t``: the script's seconds when the phase ended):
   profile      one more init step under torch.profiler: device busy time,
                idle share, device ms launched inside each of the port's
                d3h.* ranges, top operators by device time, the port's
-               kernels
+               kernels, the fields MLP's input and hidden layers on the
+               fused path and on the other (mlp_layers)
   profile      the same for FIT_PROFILE_STEPS steps of pretrain_sdf at
                every lattice vertex (the d3h.geometry.fit.* ranges)
   split_step   the same for SPLIT_STEPS split training steps: both halves
@@ -910,6 +920,86 @@ def check_bias_softplus(what: str, n: int, c: int, t: int) -> dict:
     return res
 
 
+LS_TOL = 1e-5           # linear_softplus against its plain version, of the
+                        # largest entry (an f32 sum in another order)
+
+
+def check_linear_softplus(what: str, n: int, k: int, c: int, t: int = 0,
+                          dx: bool = False, w_rows: int = 0,
+                          packed: bool = False) -> dict:
+    """One fields-MLP layer of ``ops/linear_softplus.py`` on seeded values:
+    the forward ``[softplus(100 (x @ w + b)) / 100, tail]`` of x [n, k]
+    (a view of rows padded to 4 floats, as a hidden or skip layer's input;
+    ``packed``: rows of k, as the MLP's first input), or
+    with ``dx`` the input gradient ``(g @ w^T)[:, :c] * -expm1(-100 h)`` of
+    g [n, k] through w [c', k] (c' = ``w_rows`` or c: 295 for the skip
+    layer above h; h the first c columns of rows padded to 4 floats) with
+    its bias column sums; within LS_TOL of the plain version, the same
+    bits on a second call, its launches as the wrapper states them. Device
+    ms (CUDA-graph replays), the bound (f32 operations at 67 TFLOP/s, or
+    the bytes), the plain version's ms and ``library_ms``: what it
+    replaces, the cuBLAS product and ``ops/bias_softplus.py``'s pass."""
+    import torch
+
+    from d3human_tpu_torch.ops import bias_softplus as bs
+    from d3human_tpu_torch.ops import linear_softplus as ls
+
+    gen = torch.Generator(device="cuda").manual_seed(n + k + c + t + dx)
+    fn = ls.linear_softplus100
+    before = fn.launches
+    if not dx:
+        x = torch.randn((n, k if packed else -(-k // 4) * 4), generator=gen,
+                        device="cuda")[:, :k] * (1.0 / k ** 0.5)
+        w = torch.randn((k, c), generator=gen, device="cuda") * 0.5
+        b = torch.randn((c,), generator=gen, device="cuda") * 0.1
+        tail = torch.randn((n, t), generator=gen, device="cuda") if t else \
+            None
+        got = (fn(x, w, b, tail),)
+        call = lambda: fn(x, w, b, tail)  # noqa: E731
+        plain = lambda: ls.linear_softplus100_plain(x, w, b, tail)  # noqa
+        library = lambda: bs.bias_softplus100(x @ w, b, tail)  # noqa: E731
+        launches, flops = ls.LAUNCHES, 2.0 * n * k * c
+        n_bytes = 4 * (n * k + n * (c + t) + n * t + k * c)
+    else:
+        rows = w_rows or c
+        g = torch.randn((n, k), generator=gen, device="cuda")
+        w = torch.randn((rows, k), generator=gen, device="cuda") * 0.1
+        h = torch.rand((n, -(-rows // 4) * 4), generator=gen,
+                       device="cuda")[:, :c] * 0.05
+        got = ls.linear_softplus100_dx(g, w, h)
+        call = lambda: ls.linear_softplus100_dx(g, w, h)  # noqa: E731
+        plain = lambda: ls.linear_softplus100_dx_plain(g, w, h)  # noqa
+        library = lambda: bs._backward_cuda(  # noqa: E731
+            (g @ w.t())[:, :c], h)
+        launches, flops = ls.GRAD_LAUNCHES, 2.0 * n * k * c
+        n_bytes = 4 * (n * k + 2 * n * c + k * c)
+    check(fn.launches - before == launches,
+          f"linear_softplus {what}: {fn.launches - before} launches for one "
+          f"call, the wrapper states {launches}")
+    want = plain()
+    want = want if isinstance(want, tuple) else (want,)
+    errs = [float((a - b).abs().max() / b.abs().max())
+            for a, b in zip(got, want)]
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, want))
+    check(max(errs) <= LS_TOL, f"linear_softplus {what}: {errs} from the "
+          "plain version")
+    again = call()
+    again = again if isinstance(again, tuple) else (again,)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"linear_softplus {what}: two calls give other bits")
+    bound, by = bound_ms(n_bytes, flops)
+    res = dict(call=what, n=n, k=k, c=c, t=t, x_row=x.stride(0) if not dx
+               else None, rel_err=errs,
+               bitwise_plain=bitwise, bitwise_repeat=True,
+               launches_per_call=launches, bound_ms=bound, bound_by=by,
+               device_ms=graph_ms(call), ms=cuda_ms(call),
+               plain_ms=cuda_ms(plain), library_ms=cuda_ms(library),
+               max_abs_err=max(float((a - b).abs().max())
+                               for a, b in zip(got, want)))
+    res["share_of_bound"] = res["bound_ms"] / res["device_ms"]
+    return res
+
+
 def check_scatter(what: str, idx, live, C: int, rows_out: int, srt: bool,
                   gen, faster: bool = True) -> dict:
     """The scatter at one shape on random rows (zero where ``live`` is
@@ -1264,6 +1354,60 @@ def phase_kernels(sc: dict) -> list:
                                shape=f"N={nv} C={fc.d_hidden} + "
                                      f"{model.sdf_mlp.d_emb}")))
 
+    # ---- the fields MLP's products with the bias + softplus in their
+    # epilogue, forward and input gradient, at the SDF fit's shapes, then
+    # at the nonrigid DeformMLP's: pretrain_nonrigid_zero at every grid
+    # vertex, the seq step at the seq template's cloth and body vertices
+    from d3human_tpu_torch.ops import linear_softplus
+
+    emb = model.sdf_mlp.d_emb
+    ls_fwd = [check_linear_softplus("input layer", nv, emb, fc.d_hidden,
+                                    packed=True),
+              check_linear_softplus("hidden layer", nv, fc.d_hidden,
+                                    fc.d_hidden),
+              check_linear_softplus("before the skip", nv, fc.d_hidden,
+                                    fc.d_hidden, emb),
+              check_linear_softplus("skip layer", nv, fc.d_hidden + emb,
+                                    fc.d_hidden)]
+    ls_dx = [check_linear_softplus("dx hidden layer", nv, fc.d_hidden,
+                                   fc.d_hidden, dx=True),
+             check_linear_softplus("dx skip layer", nv, fc.d_hidden,
+                                   fc.d_hidden, dx=True,
+                                   w_rows=fc.d_hidden + emb),
+             check_linear_softplus("dx output layer", nv, 1, fc.d_hidden,
+                                   dx=True)]
+    nr, tmpl = model.nonrigid, sc["seq_template"]
+    nr_k = nr.d_extra_in + nr.d_emb
+    nr_at = [("grid", nv), ("seq cloth", int(tmpl.cloth_vidx.shape[0])),
+             ("seq body", int(tmpl.body_vidx.shape[0]))]
+    ls_fwd += [check_linear_softplus(f"nonrigid input layer, {at}", n, nr_k,
+                                     nr.d_hidden, packed=True)
+               for at, n in nr_at]
+    ls_fwd += [check_linear_softplus("nonrigid before the skip, grid", nv,
+                                     nr.d_hidden, nr.d_hidden, nr.d_emb),
+               check_linear_softplus("nonrigid skip layer, grid", nv,
+                                     nr.d_hidden + nr.d_emb, nr.d_hidden)]
+    ls_dx += [check_linear_softplus(f"dx nonrigid output layer, {at}", n,
+                                    nr.d_out, nr.d_hidden, dx=True)
+              for at, n in nr_at]
+    ls_dx += [check_linear_softplus("dx nonrigid skip layer, grid", nv,
+                                    nr.d_hidden, nr.d_hidden, dx=True,
+                                    w_rows=nr.d_hidden + nr.d_emb)]
+    emit("kernel_linear_softplus", tolerance=f"{LS_TOL} of the largest entry",
+         tile_rows=linear_softplus.TILE_ROWS, forward=ls_fwd, dx=ls_dx)
+    rows.append(dict(name="linear_softplus100", route="cuda",
+                     source="d3human_tpu_torch/csrc/linear_softplus.cu",
+                     replaces="port-only (the JAX MLP's products and "
+                              "softplus are plain jnp: "
+                              "d3human_tpu/models/fields.py)",
+                     shape=f"N={nv} K={fc.d_hidden} C={fc.d_hidden}",
+                     **kernel_summary(ls_fwd[1]),
+                     dx=dict(kernel_summary(ls_dx[0]),
+                             shape=f"N={nv} Kd={fc.d_hidden} "
+                                   f"C={fc.d_hidden}"),
+                     calls={r["call"]: kernel_summary(r)
+                            for r in ls_fwd + ls_dx}))
+
     # ---- tile resolve on the scene's own binning: exact keys
     emit("bin_faces", **binning_stats(binned, v_clip, faces, fvalid, res))
     got, rs = check_resolve(binned)
@@ -1557,13 +1701,19 @@ def phase_profile(what: str, run) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from d3human_tpu_torch.ops import linear_softplus
+
     torch.cuda.synchronize()
+    paths0 = (linear_softplus.FUSED_CALLS, linear_softplus.FALLBACK_CALLS)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # the fields MLP's input and hidden layers on each path
+    mlp_layers = dict(fused=linear_softplus.FUSED_CALLS - paths0[0],
+                      fallback=linear_softplus.FALLBACK_CALLS - paths0[1])
     kernels = device_rows(prof)
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         PROFILE_TRACE)
@@ -1586,7 +1736,8 @@ def phase_profile(what: str, run) -> None:
                 if e.key == "aten::_index_put_impl_"]
     emit("profile", of=what, wall_ms=wall_ms, device_busy_ms=busy_ms,
          idle_share=1.0 - busy_ms / wall_ms, device_kernels=len(kernels),
-         spans_ms=spans, top=[row(e) for e in avg[:20]],
+         spans_ms=spans, mlp_layers=mlp_layers,
+         top=[row(e) for e in avg[:20]],
          index_put=[dict(shapes=str(e.input_shapes), calls=e.count,
                          device_ms=e.device_time_total / 1e3)
                     for e in sorted(by_shape, key=lambda e:
@@ -1595,7 +1746,8 @@ def phase_profile(what: str, run) -> None:
              "first_k_count_kernel", "first_k_write_kernel",
              "scatter_keys_kernel", "DeviceRadixSort",
              "segsum_tile_kernel", "segsum_carry_kernel",
-             "resolve_tiles_kernel", "fill_keys_kernel"))])
+             "resolve_tiles_kernel", "fill_keys_kernel", "bias_softplus_",
+             "linear_softplus_"))])
 
 
 def phase_seq_knn(sc: dict) -> None:
@@ -5130,9 +5282,13 @@ def main() -> int:
             check(r[what] > 0, f"{r['name']}: no {what} on the driven paths")
             for path in ("parallel_seq", "dp"):
                 n = r[what + "_by_path"][path]
-                # no depth peel in training; no eikonal term in seq
+                # no depth peel in training; no eikonal term in seq; the
+                # seq MLP (at template points) all fused, the init and
+                # split MLPs (points that carry deform's gradient) none
                 none = r["name"] == "resolve_tiles_peel" or (
-                    r["name"] == "inclusive_scan" and path == "parallel_seq")
+                    path == "parallel_seq" and r["name"] in (
+                        "inclusive_scan", "bias_softplus100")) or (
+                    path == "dp" and r["name"] == "linear_softplus100")
                 check(n == 0 if none else n > 0,
                       f"{r['name']}: {n} {what} on the {path} path")
     emit("paths", init_step={"steps": INIT_STEPS},

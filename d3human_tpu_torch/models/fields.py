@@ -7,9 +7,13 @@ package's layout (``x @ w + b``), so converted JAX weights compute the same
 function. With ``use_bfloat16`` the input and hidden layers multiply
 bfloat16-rounded inputs and weights with float32 accumulation and a
 float32 bias; the output layer stays float32 (the SDF's sign decides the
-mesh's topology). Each input and hidden layer's bias and activation are
-one pass forward and one backward (``ops/bias_softplus.py``) on the
-product without its bias.
+mesh's topology). At float32 points that do not require grad (the fits,
+the nonrigid field at a template, every query under ``no_grad``) each
+input and hidden layer is one product with the bias and activation in its
+epilogue, forward and input gradient (``ops/linear_softplus.py``);
+otherwise (the eikonal's input gradient and its double backward,
+``use_bfloat16``) its bias and activation are one pass forward and one
+backward (``ops/bias_softplus.py``) on the product without its bias.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from d3human_tpu_torch.ops import linear_softplus
 from d3human_tpu_torch.ops.bias_softplus import bias_softplus100
 from d3human_tpu_torch.utils.consts import const
 from d3human_tpu_torch.utils.logging import span
@@ -118,16 +123,28 @@ class MLP:
         return {"layers": layers}
 
     def apply(self, params: Params, x: torch.Tensor,
-              extra: Optional[torch.Tensor] = None) -> torch.Tensor:
+              extra: Optional[torch.Tensor] = None,
+              checkpointed: bool = False) -> torch.Tensor:
+        """The MLP at x [..., 3] (``extra`` [..., d_extra_in] before the
+        encoding); ``checkpointed``: the call runs inside an activation
+        checkpoint (``linear_softplus.fusable``)."""
         with span("d3h.fields.mlp"):
             emb = posenc(x, self.n_freq)
             h = emb if extra is None else torch.cat([extra, emb], dim=-1)
             layers = params["layers"]
             # the input layer and the hidden layers; the output of layer j
             # feeds hidden layer j, so j in skip_in writes [h, emb]
+            skips = [j for j in self.skip_in if j < self.n_hidden]
+            if linear_softplus.fusable(x, self.use_bfloat16, self.d_hidden,
+                                       checkpointed):
+                rows = x.shape[:-1]
+                y = linear_softplus.fused_mlp(
+                    layers, h.reshape(-1, h.shape[-1]),
+                    emb.reshape(-1, emb.shape[-1]), skips)
+                return y.reshape(*rows, y.shape[-1])
+            linear_softplus.FALLBACK_CALLS += len(layers) - 1
             for j, lin in enumerate(layers[:-1]):
-                tail = emb if j < self.n_hidden and j in self.skip_in \
-                    else None
+                tail = emb if j in skips else None
                 h = bias_softplus100(
                     _product(lin, h, self.use_bfloat16), lin["b"], tail)
             return h @ layers[-1]["w"] + layers[-1]["b"]

@@ -133,18 +133,20 @@ class GeometryModel:
         points, it runs chunk by chunk (zero-padded to whole chunks), each
         recomputed in the backward, so the backward's activations exist for
         one chunk at a time (the JAX package's ``jax.checkpoint`` under
-        ``lax.map``)."""
+        ``lax.map``); with grad on, the chunks take the MLP's unfused path,
+        whose activations the checkpoint can drop."""
         chunk = self.cfg.geometry.sdf_chunk
         n = pts.shape[0] if pts.dim() == 2 else None
 
-        def apply(p):
-            return self.sdf_mlp.apply(params["sdf_net"], p)[..., 0]
+        def apply(p, checkpointed=False):
+            return self.sdf_mlp.apply(params["sdf_net"], p,
+                                      checkpointed=checkpointed)[..., 0]
 
         if not chunk or n is None or n <= chunk:
             return apply(pts)
         pts_p = torch.nn.functional.pad(pts, (0, 0, 0, (-n) % chunk))
         return torch.cat([
-            torch.utils.checkpoint.checkpoint(apply, blk,
+            torch.utils.checkpoint.checkpoint(apply, blk, True,
                                               use_reentrant=False)
             for blk in pts_p.split(chunk)])[:n]
 

@@ -20,7 +20,8 @@ from typing import Dict, Iterable, Sequence
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
-SOURCES = ("first_k", "scatter", "raster_resolve", "scan", "softplus100")
+SOURCES = ("first_k", "scatter", "raster_resolve", "scan", "softplus100",
+           "linear_softplus")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

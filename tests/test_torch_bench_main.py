@@ -110,7 +110,8 @@ def test_chip_smoke_bench_rehearsal(runs):
         assert k["platform"] == "cpu" and k["iters"] == 2
         assert set(k["launches"]) == set(k["calls"]) == {
             "first_k_indices", "coo_scatter_add", "resolve_tiles",
-            "resolve_tiles_peel", "inclusive_scan", "bias_softplus100"}
+            "resolve_tiles_peel", "inclusive_scan", "bias_softplus100",
+            "linear_softplus100"}
         assert not any(k["launches"].values())
         assert not any(k["calls"].values())
         assert k["n_max_tile"] > 0

@@ -459,16 +459,19 @@ def test_cuda_bias_softplus_through_autograd(cuda_device):
 
 
 # a pretrain_sdf step of the 6 x 256 SDF MLP: the input layer and six
-# hidden layers each one forward call (one launch) and one backward call
-# (two launches: g_z with the partial column sums, then their reduce)
+# hidden layers each one forward launch of the fused product with the bias
+# + softplus in its epilogue, and one input-gradient call (two launches:
+# the product with the softplus derivative and the partial column sums,
+# then their reduce) each, the first from the output layer's gradient
 FIT_STEP_CALLS = 7
 
 
 @pytest.mark.cuda
 def test_cuda_pretrain_sdf_step_goes_through_the_kernel(cuda_device):
     """One step of ``GeometryModel.pretrain_sdf`` at the f3c field's width
-    on 20,000 points: FIT_STEP_CALLS forward calls and FIT_STEP_CALLS x 3
-    launches (one forward, two backward each); two runs from the same
+    on 20,000 points: FIT_STEP_CALLS layers on the fused path, forward
+    calls and FIT_STEP_CALLS x (1 + 2) launches of ``linear_softplus``, no
+    launch of the separate bias + softplus pass; two runs from the same
     layers give the same bits."""
     import types
 
@@ -476,6 +479,7 @@ def test_cuda_pretrain_sdf_step_goes_through_the_kernel(cuda_device):
     from d3human_tpu_torch.models.fields import MLP
     from d3human_tpu_torch.models.geometry import GeometryModel
     from d3human_tpu_torch.ops import bias_softplus as bs
+    from d3human_tpu_torch.ops import linear_softplus as ls
 
     f = FieldConfig()
     mlp = MLP(n_freq=f.n_freq, d_hidden=f.d_hidden, n_hidden=f.n_hidden,
@@ -487,14 +491,132 @@ def test_cuda_pretrain_sdf_step_goes_through_the_kernel(cuda_device):
     geo = types.SimpleNamespace(grid=types.SimpleNamespace(verts=verts),
                                 sdf_mlp=mlp, _fit=GeometryModel._fit)
     target = 0.3 - verts.norm(dim=-1)
-    fn = bs.bias_softplus100
+    fn = ls.linear_softplus100
     runs = []
     for _ in range(2):
-        before = (fn.launches, fn.calls)
+        before = (fn.launches, fn.calls, ls.FUSED_CALLS,
+                  bs.bias_softplus100.launches)
         out, loss = GeometryModel.pretrain_sdf(geo, params, target, steps=1)
-        assert (fn.launches - before[0], fn.calls - before[1]) == (
-            FIT_STEP_CALLS * (bs.LAUNCHES + bs.GRAD_LAUNCHES),
-            FIT_STEP_CALLS)
+        assert (fn.launches - before[0], fn.calls - before[1],
+                ls.FUSED_CALLS - before[2],
+                bs.bias_softplus100.launches - before[3]) == (
+            FIT_STEP_CALLS * (ls.LAUNCHES + ls.GRAD_LAUNCHES),
+            FIT_STEP_CALLS, FIT_STEP_CALLS, 0)
         runs.append(out["sdf_net"]["layers"])
     for a, b in zip(*runs):
         assert torch.equal(a["w"], b["w"]) and torch.equal(a["b"], b["b"])
+
+
+# the fit's rows (the cropped lattice and the uncropped 129^3 one), a
+# ragged count and one under a tile; the input layer's depth (the
+# encoding), DeformMLP's (136 + 51), a hidden layer's and the skip layer's
+LS_ROWS = (674_310, 2_146_689, 1_000, 77)
+LS_TOL = 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", LS_ROWS)
+@pytest.mark.parametrize("k,t", [(39, 0), (187, 0), (256, 39), (295, 0)])
+def test_cuda_linear_softplus_equals_plain(cuda_device, n, k, t):
+    """The fused forward against the plain product and pass within LS_TOL
+    of the largest entry (the sum in another order), x as the first k
+    columns of rows padded to 4 floats; the same bits on a second call;
+    one launch counted."""
+    from d3human_tpu_torch.ops import linear_softplus as ls
+
+    g = torch.Generator(device=cuda_device).manual_seed(n + k)
+    x = torch.randn((n, -(-k // 4) * 4), generator=g,
+                    device=cuda_device)[:, :k] / k ** 0.5
+    w = torch.randn((k, 256), generator=g, device=cuda_device) * 0.5
+    b = torch.randn((256,), generator=g, device=cuda_device) * 0.1
+    tail = torch.randn((n, t), generator=g, device=cuda_device) if t \
+        else None
+    fn = ls.linear_softplus100
+    before = fn.launches
+    got = fn(x, w, b, tail)
+    assert fn.launches - before == ls.LAUNCHES
+    assert got.shape == (n, 256 + t) and got.stride(0) % 4 == 0
+    want = ls.linear_softplus100_plain(x, w, b, tail)
+    assert _rel_max(got, want) <= LS_TOL
+    if t:
+        assert torch.equal(got[:, 256:], tail)
+    assert torch.equal(fn(x, w, b, tail), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", LS_ROWS)
+@pytest.mark.parametrize("kd,rows", [(256, 256), (256, 295), (1, 256),
+                                     (3, 256)])
+def test_cuda_linear_softplus_dx_equals_plain(cuda_device, n, kd, rows):
+    """The fused input gradient (g @ w^T)[:, :256] * -expm1(-100 h) and
+    its bias column sums against the plain product and bias_softplus's plain
+    backward within LS_TOL (h the first 256 columns of the skip layer's
+    padded rows where w has 295 rows; kd 1 the SDF MLP's output layer's
+    rank-1 gradient, kd 3 DeformMLP's); the same bits on a second call;
+    two launches counted."""
+    from d3human_tpu_torch.ops import linear_softplus as ls
+
+    g = torch.Generator(device=cuda_device).manual_seed(n + kd + rows)
+    gz = torch.randn((n, kd), generator=g, device=cuda_device)
+    w = torch.randn((rows, kd), generator=g, device=cuda_device) * 0.1
+    h = torch.rand((n, -(-rows // 4) * 4), generator=g,
+                   device=cuda_device)[:, :256] * 0.05
+    fn = ls.linear_softplus100
+    before = fn.launches
+    got = ls.linear_softplus100_dx(gz, w, h)
+    assert fn.launches - before == ls.GRAD_LAUNCHES
+    want = ls.linear_softplus100_dx_plain(gz, w, h)
+    for a, b in zip(got, want):
+        assert _rel_max(a, b) <= LS_TOL
+    again = ls.linear_softplus100_dx(gz, w, h)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sdf", "deform"])
+def test_cuda_fused_mlp_matches_previous_path(cuda_device, kind):
+    """The MLP at points without grad on the card (the fused path, all its
+    input and hidden layers) against the product + bias_softplus path on
+    the card: output and every leaf's gradient within 1e-5 (rel to the
+    largest entry); the eikonal's input gradient still takes that path."""
+    from d3human_tpu_torch.models.fields import MLP, DeformMLP
+    from d3human_tpu_torch.ops import linear_softplus as ls
+
+    gen = torch.Generator().manual_seed(11)
+    if kind == "deform":
+        mlp = DeformMLP()
+        extra = (torch.randn((1, 1, mlp.pose_dim), generator=gen) * 0.1
+                 ).to(cuda_device)
+    else:
+        mlp = MLP(n_freq=6, d_hidden=256, n_hidden=6, skip_in=(3,))
+        extra = None
+    params = mlp.init(gen, cuda_device)
+    pts = ((torch.rand((5000, 3), generator=gen) - 0.5) * 1.6).to(cuda_device)
+    results = []
+    for fused in (True, False):
+        leaves = [t.clone().requires_grad_(True)
+                  for lay in params["layers"] for t in (lay["w"], lay["b"])]
+        p = {"layers": [{"w": leaves[2 * i], "b": leaves[2 * i + 1]}
+                        for i in range(len(leaves) // 2)]}
+        real = ls.fusable
+        before = (ls.FUSED_CALLS, ls.FALLBACK_CALLS)
+        if not fused:
+            ls.fusable = lambda *a: False
+        try:
+            y = mlp.apply(p, pts) if extra is None else \
+                mlp.apply(p, pts, extra)
+        finally:
+            ls.fusable = real
+        n = (ls.FUSED_CALLS - before[0], ls.FALLBACK_CALLS - before[1])
+        assert n == ((mlp.n_hidden + 1, 0) if fused
+                     else (0, mlp.n_hidden + 1))
+        results.append((y, torch.autograd.grad((y * y).sum(), leaves)))
+    (y, g), (y0, g0) = results
+    assert _rel_max(y, y0) <= 1e-5
+    for a, b in zip(g, g0):
+        assert _rel_max(a, b) <= 1e-5
+    x = pts.clone().requires_grad_(True)
+    before = ls.FALLBACK_CALLS
+    y = mlp.apply(params, x) if extra is None else mlp.apply(params, x, extra)
+    torch.autograd.grad(y.sum(), x, create_graph=True)
+    assert ls.FALLBACK_CALLS - before == mlp.n_hidden + 1

@@ -184,7 +184,8 @@ def test_chip_smoke_scene_rehearsal(tmp_path):
     pbr = chip_smoke.phase_pbr(sc, "cpu")
     assert set(pbr["launches"]) == {"first_k_indices", "coo_scatter_add",
                                     "resolve_tiles", "resolve_tiles_peel",
-                                    "inclusive_scan", "bias_softplus100"}
+                                    "inclusive_scan", "bias_softplus100",
+                                    "linear_softplus100"}
     # the recorder saw every kernel's wrapper on the path
     assert set(pbr["inputs"]) == {"first_k_indices", "coo_scatter_add",
                                   "resolve_tiles"}
