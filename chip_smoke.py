@@ -1451,18 +1451,18 @@ def phase_kernels(sc: dict) -> list:
 
 
 def reset_counts() -> None:
-    """Zero every kernel wrapper's counters (the bench's own reset)."""
-    from d3human_tpu_torch.bench import reset_counts as reset
+    """Zero every counter of the port's kernel registry."""
+    from d3human_tpu_torch.ops import cuda_lib
 
-    reset()
+    cuda_lib.reset_counts()
 
 
 def read_counts() -> dict:
     """Kernel launches since ``reset_counts``, by the kernel table's names,
-    and the wrappers' ``calls`` (``d3human_tpu_torch.bench.read_counts``)."""
-    from d3human_tpu_torch.bench import read_counts as read
+    and the wrappers' ``calls`` (``cuda_lib.read_counts``)."""
+    from d3human_tpu_torch.ops import cuda_lib
 
-    return read()
+    return cuda_lib.read_counts()
 
 
 # calls per step the stage's code path must make (first_k: crossing edges
@@ -1701,10 +1701,10 @@ def phase_profile(what: str, run) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from d3human_tpu_torch.ops import linear_softplus
+    from d3human_tpu_torch.ops import cuda_lib
 
     torch.cuda.synchronize()
-    paths0 = (linear_softplus.FUSED_CALLS, linear_softplus.FALLBACK_CALLS)
+    paths0 = cuda_lib.path_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         t0 = time.perf_counter()
@@ -1712,8 +1712,9 @@ def phase_profile(what: str, run) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # the fields MLP's input and hidden layers on each path
-    mlp_layers = dict(fused=linear_softplus.FUSED_CALLS - paths0[0],
-                      fallback=linear_softplus.FALLBACK_CALLS - paths0[1])
+    paths = cuda_lib.path_counts()
+    mlp_layers = {k: paths[f"mlp_{k}"] - paths0[f"mlp_{k}"]
+                  for k in ("fused", "fallback")}
     kernels = device_rows(prof)
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         PROFILE_TRACE)

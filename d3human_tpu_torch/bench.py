@@ -50,6 +50,7 @@ import time
 import torch
 
 from d3human_tpu_torch import DEFAULT_DEVICE
+from d3human_tpu_torch.ops.cuda_lib import read_counts, reset_counts
 
 # The JAX bench's documented engineering estimates of the reference on one
 # V100 at the same configurations (BASELINE.md: the reference publishes no
@@ -274,60 +275,6 @@ def build_seq(scale: str, device=DEFAULT_DEVICE):
               "perc_params": perc_params, "cfg": cfg, "stage": "seq",
               "template": template, "scene": scene}
     return state, step_fn, scene.frame_target(0), extras
-
-
-def reset_counts() -> None:
-    """Zero every kernel wrapper's counters."""
-    from d3human_tpu_torch.ops import (
-        bias_softplus, compaction, linear_softplus, raster_resolve, scan,
-        scatter,
-    )
-
-    compaction.first_k_indices.launches = 0
-    compaction.first_k_indices.calls = 0
-    scatter.coo_scatter_add.launches = 0
-    scatter.coo_scatter_add.calls = 0
-    raster_resolve.resolve_tiles.launches = 0
-    raster_resolve.resolve_tiles.floor_launches = 0
-    scan.inclusive_scan.launches = 0
-    scan.inclusive_scan.calls = 0
-    bias_softplus.bias_softplus100.launches = 0
-    bias_softplus.bias_softplus100.calls = 0
-    linear_softplus.linear_softplus100.launches = 0
-    linear_softplus.linear_softplus100.calls = 0
-
-
-def read_counts() -> dict:
-    """Kernel launches since ``reset_counts``, by the kernel table's names:
-    the resolve's launches with a floor count as ``resolve_tiles_peel``.
-    ``calls`` are calls of the wrappers; they differ from the launches for
-    first_k (a count and a write launch per call), the scatter (two sum
-    kernels per call, one for a single tile), the scan (two a call) and
-    the fields MLP's bias + softplus and its products with them in the
-    epilogue (calls of their forwards, one launch each, and two launches
-    each backward or input gradient). The wrappers count only on CUDA
-    tensors: on the CPU all are 0."""
-    from d3human_tpu_torch.ops import (
-        bias_softplus, compaction, linear_softplus, raster_resolve, scan,
-        scatter,
-    )
-
-    rt = raster_resolve.resolve_tiles
-    sp = bias_softplus.bias_softplus100
-    lsp = linear_softplus.linear_softplus100
-    n = {"first_k_indices": compaction.first_k_indices.launches,
-         "coo_scatter_add": scatter.coo_scatter_add.launches,
-         "resolve_tiles": rt.launches - rt.floor_launches,
-         "resolve_tiles_peel": rt.floor_launches,
-         "inclusive_scan": scan.inclusive_scan.launches,
-         "bias_softplus100": sp.launches,
-         "linear_softplus100": lsp.launches}
-    n["calls"] = dict(n, first_k_indices=compaction.first_k_indices.calls,
-                      coo_scatter_add=scatter.coo_scatter_add.calls,
-                      inclusive_scan=scan.inclusive_scan.calls,
-                      bias_softplus100=sp.calls,
-                      linear_softplus100=lsp.calls)
-    return n
 
 
 def _sync(device: torch.device) -> None:

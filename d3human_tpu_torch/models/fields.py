@@ -23,7 +23,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from d3human_tpu_torch.ops import linear_softplus
+from d3human_tpu_torch.ops import cuda_lib, linear_softplus
 from d3human_tpu_torch.ops.bias_softplus import bias_softplus100
 from d3human_tpu_torch.utils.consts import const
 from d3human_tpu_torch.utils.logging import span
@@ -142,7 +142,7 @@ class MLP:
                     layers, h.reshape(-1, h.shape[-1]),
                     emb.reshape(-1, emb.shape[-1]), skips)
                 return y.reshape(*rows, y.shape[-1])
-            linear_softplus.FALLBACK_CALLS += len(layers) - 1
+            cuda_lib.count_path("mlp_fallback", len(layers) - 1)
             for j, lin in enumerate(layers[:-1]):
                 tail = emb if j in skips else None
                 h = bias_softplus100(

@@ -1,5 +1,6 @@
 """Native (C++) host components of the port, built with ``g++`` at first
-use into ``d3human_tpu_torch/build/`` (never next to the source).
+use into ``d3human_tpu_torch/build/`` (never next to the source) by
+``ops/cuda_lib.py:build_libs``, the builder of the CUDA kernels too.
 
   * meshsdf: BVH + pseudonormal signed-distance queries, the host engine
     of the template surgery (``native/meshsdf.py``).
@@ -16,20 +17,11 @@ with the tensor op instead (``ops/mesh_sdf.py:mesh_sdf_host``).
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
-import threading
 from pathlib import Path
 
+from d3human_tpu_torch.ops.cuda_lib import BUILD, BuildError, build_libs
+
 SRC = Path(__file__).resolve().parent
-BUILD = SRC.parent / "build"
-GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17", "-pthread")
-
-_lock = threading.Lock()
-
-
-class BuildError(RuntimeError):
-    """A native library could not be built or loaded."""
 
 
 def lib_path(name: str) -> Path:
@@ -38,25 +30,9 @@ def lib_path(name: str) -> Path:
 
 def build_lib(name: str, force: bool = False) -> Path:
     """Compile ``build/lib<name>.so`` from ``<name>.cpp`` when it is missing
-    or older than its source; returns its path. The compiler writes a
-    temporary file that replaces the library atomically, so processes that
-    build at once do not see a half-written library."""
-    src, lib = SRC / f"{name}.cpp", lib_path(name)
-    with _lock:
-        if not force and lib.exists() and (
-                lib.stat().st_mtime >= src.stat().st_mtime):
-            return lib
-        BUILD.mkdir(parents=True, exist_ok=True)
-        tmp = BUILD / f"lib{name}.so.{os.getpid()}.tmp"
-        cmd = ["g++", *GXX_FLAGS, str(src), "-o", str(tmp)]
-        try:
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-        except OSError as e:
-            raise BuildError(f"g++ could not run: {e}") from e
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise BuildError(f"g++ failed on {src.name}:\n{proc.stderr}")
-        os.replace(tmp, lib)
+    or older than its source (``build_libs``); returns its path."""
+    lib = lib_path(name)
+    build_libs([(SRC / f"{name}.cpp", lib)], force)
     return lib
 
 

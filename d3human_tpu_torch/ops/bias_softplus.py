@@ -91,12 +91,11 @@ def _forward_cuda(z: torch.Tensor, b: torch.Tensor,
     if n == 0:
         return out
     b = b.contiguous()
-    cuda_lib.check(cuda_lib.load("softplus100", _SIG).d3h_bias_softplus100(
-        z2.data_ptr(), b.data_ptr(),
-        None if tail2 is None else tail2.data_ptr(),
-        0 if tail2 is None else tail2.stride(0), t, out.data_ptr(), c + t,
-        n, c, cuda_lib.stream_ptr(z.device)), "bias_softplus100")
-    bias_softplus100.launches += LAUNCHES
+    cuda_lib.launch(bias_softplus100, "d3h_bias_softplus100", z2.data_ptr(),
+                    b.data_ptr(), None if tail2 is None else tail2.data_ptr(),
+                    0 if tail2 is None else tail2.stride(0), t,
+                    out.data_ptr(), c + t, n, c, device=z.device,
+                    launches=LAUNCHES)
     return out
 
 
@@ -119,12 +118,10 @@ def _backward_cuda(g: torch.Tensor, h: torch.Tensor
     gb = torch.empty((c,), dtype=torch.float32, device=h.device)
     partial = torch.empty((c * -(-n // ROWS),), dtype=torch.float64,
                           device=h.device)
-    cuda_lib.check(cuda_lib.load(
-        "softplus100", _SIG).d3h_bias_softplus100_backward(
-        g2.data_ptr(), g2.stride(0), h2.data_ptr(), h2.stride(0),
-        gz.data_ptr(), partial.data_ptr(), gb.data_ptr(), n, c,
-        cuda_lib.stream_ptr(h.device)), "bias_softplus100 backward")
-    bias_softplus100.launches += GRAD_LAUNCHES
+    cuda_lib.launch(bias_softplus100, "d3h_bias_softplus100_backward",
+                    g2.data_ptr(), g2.stride(0), h2.data_ptr(), h2.stride(0),
+                    gz.data_ptr(), partial.data_ptr(), gb.data_ptr(), n, c,
+                    device=h.device, launches=GRAD_LAUNCHES)
     return gz, gb
 
 
@@ -186,6 +183,7 @@ class _BiasSoftplus100(torch.autograd.Function):
         return g_z, g_b, g_tail
 
 
+@cuda_lib.counted("softplus100", _SIG)
 def bias_softplus100(z: torch.Tensor, b: torch.Tensor,
                      tail: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``softplus(100 (z + b)) / 100`` of z [..., C] and the bias b [C],
@@ -193,7 +191,3 @@ def bias_softplus100(z: torch.Tensor, b: torch.Tensor,
     twice. float32 on a CUDA device (the kernel), any float type on the
     CPU (the plain versions)."""
     return _BiasSoftplus100.apply(z, b, tail)
-
-
-bias_softplus100.launches = 0     # kernel launches, forward and backward
-bias_softplus100.calls = 0        # forward calls on CUDA tensors

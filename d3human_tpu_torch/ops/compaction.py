@@ -47,6 +47,7 @@ def first_k_plain(mask: torch.Tensor, k: int, fill_value: int) -> torch.Tensor:
     return buf[:k]
 
 
+@cuda_lib.counted("first_k", _SIG)
 def first_k_indices(mask: torch.Tensor, k: int,
                     fill_value: int) -> torch.Tensor:
     """int32 [k]: indices of the first k true entries of ``mask``
@@ -70,12 +71,7 @@ def first_k_indices(mask: torch.Tensor, k: int,
     buf = torch.empty((k + (n + 15 + TILE_BYTES - 1) // TILE_BYTES,),
                       dtype=torch.int32, device=dev)
     out = buf.data_ptr()
-    cuda_lib.check(cuda_lib.load("first_k", _SIG).d3h_first_k(
-        mask.data_ptr(), n, k, int(fill_value), out, out + 4 * k,
-        cuda_lib.stream_ptr(dev)), "first_k")
-    first_k_indices.launches += LAUNCHES
+    cuda_lib.launch(first_k_indices, "d3h_first_k", mask.data_ptr(), n, k,
+                    int(fill_value), out, out + 4 * k, device=dev,
+                    launches=LAUNCHES)
     return buf[:k]
-
-
-first_k_indices.launches = 0    # kernel launches (LAUNCHES per call)
-first_k_indices.calls = 0       # calls of the wrapper on CUDA tensors

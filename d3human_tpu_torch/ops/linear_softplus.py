@@ -57,11 +57,6 @@ TILE_ROWS = 128         # rows of a CTA's tile (csrc/linear_softplus.cu BM)
 LAUNCHES = 1            # kernel launches per forward layer
 GRAD_LAUNCHES = 2       # per input-gradient layer: product, bias reduce
 
-# input and hidden layers the MLP evaluated on each path: this fused one,
-# and the other (a product, then ops/bias_softplus.py)
-FUSED_CALLS = 0
-FALLBACK_CALLS = 0
-
 
 def fusable(x: torch.Tensor, use_bfloat16: bool, d_hidden: int,
             checkpointed: bool = False) -> bool:
@@ -122,6 +117,7 @@ def _aligned(*ts: torch.Tensor) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
+@cuda_lib.counted("linear_softplus", _SIG)
 def linear_softplus100(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                        tail: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``[softplus(100 (x @ w + b)) / 100, tail]`` of x [M, K], w [K, C],
@@ -149,18 +145,12 @@ def linear_softplus100(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     tail = None if tail is None else _rows(tail)
     if not _aligned(w, b):
         raise ValueError("linear_softplus100: w and b must start on 16 bytes")
-    cuda_lib.check(cuda_lib.load("linear_softplus", _SIG)
-                   .d3h_linear_softplus100(
-        x.data_ptr(), x.stride(0), k, w.data_ptr(), b.data_ptr(), c,
-        None if tail is None else tail.data_ptr(),
-        0 if tail is None else tail.stride(0), t, out.data_ptr(),
-        out.stride(0), m, cuda_lib.stream_ptr(x.device)), "linear_softplus100")
-    linear_softplus100.launches += LAUNCHES
+    cuda_lib.launch(linear_softplus100, "d3h_linear_softplus100",
+                    x.data_ptr(), x.stride(0), k, w.data_ptr(), b.data_ptr(),
+                    c, None if tail is None else tail.data_ptr(),
+                    0 if tail is None else tail.stride(0), t, out.data_ptr(),
+                    out.stride(0), m, device=x.device, launches=LAUNCHES)
     return out
-
-
-linear_softplus100.launches = 0   # kernel launches, forward and gradient
-linear_softplus100.calls = 0      # forward calls on CUDA tensors
 
 
 def linear_softplus100_dx(g: torch.Tensor, w: torch.Tensor, h: torch.Tensor
@@ -193,13 +183,11 @@ def linear_softplus100_dx(g: torch.Tensor, w: torch.Tensor, h: torch.Tensor
     gb = torch.empty((c,), dtype=torch.float32, device=h.device)
     partial = torch.empty((c * -(-m // TILE_ROWS),), dtype=torch.float64,
                           device=h.device)
-    cuda_lib.check(cuda_lib.load("linear_softplus", _SIG)
-                   .d3h_linear_softplus100_dx(
-        g.data_ptr(), g.stride(0), g.shape[1], wt.data_ptr(),
-        h.data_ptr(), h.stride(0), gz.data_ptr(), m, c, partial.data_ptr(),
-        gb.data_ptr(), cuda_lib.stream_ptr(h.device)),
-        "linear_softplus100_dx")
-    linear_softplus100.launches += GRAD_LAUNCHES
+    cuda_lib.launch(linear_softplus100, "d3h_linear_softplus100_dx",
+                    g.data_ptr(), g.stride(0), g.shape[1], wt.data_ptr(),
+                    h.data_ptr(), h.stride(0), gz.data_ptr(), m, c,
+                    partial.data_ptr(), gb.data_ptr(), device=h.device,
+                    launches=GRAD_LAUNCHES)
     return gz, gb
 
 
@@ -262,9 +250,8 @@ def fused_mlp(layers: Sequence[dict], h0: torch.Tensor,
     the output layer) from its input h0 [N, K0]; input and hidden layer j
     in ``skips`` writes ``[h, tail]`` (tail [N, T], which must not require
     grad). Differentiable once in h0 and the layers."""
-    global FUSED_CALLS
     leaves = [t for lay in layers for t in (lay["w"], lay["b"])]
     keep = torch.is_grad_enabled() and any(
         t.requires_grad for t in [h0, *leaves])
-    FUSED_CALLS += len(layers) - 1
+    cuda_lib.count_path("mlp_fused", len(layers) - 1)
     return _FusedMLP.apply(frozenset(skips), keep, h0, tail, *leaves)

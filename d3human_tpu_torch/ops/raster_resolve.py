@@ -170,6 +170,7 @@ def resolve_tiles_plain(rows: torch.Tensor, faces: torch.Tensor,
     return torch.cat(out, dim=0)
 
 
+@cuda_lib.counted("raster_resolve", _SIG, floor=True)
 def resolve_tiles(rows: torch.Tensor, faces: torch.Tensor,
                   starts: torch.Tensor, big_base: int, n_big: torch.Tensor,
                   tile: Tuple[int, int], ntx: int,
@@ -214,20 +215,16 @@ def resolve_tiles(rows: torch.Tensor, faces: torch.Tensor,
     out = torch.empty((NT, th * tw), dtype=torch.int64, device=dev)
     if NT == 0:
         return out
-    lib = cuda_lib.load("raster_resolve", _SIG)
-    cuda_lib.check(lib.d3h_resolve_tiles(
-        rows.data_ptr(), faces.data_ptr(), starts.data_ptr(), int(big_base),
-        n_big.data_ptr(), 0 if floor is None else floor.data_ptr(), NT, th,
-        tw, ntx, out.data_ptr(), walked_pairs(dev).data_ptr(),
-        cuda_lib.stream_ptr(dev)), "resolve_tiles")
-    resolve_tiles.launches += 1
+    cuda_lib.launch(resolve_tiles, "d3h_resolve_tiles", rows.data_ptr(),
+                    faces.data_ptr(), starts.data_ptr(), int(big_base),
+                    n_big.data_ptr(), 0 if floor is None else floor.data_ptr(),
+                    NT, th, tw, ntx, out.data_ptr(),
+                    walked_pairs(dev).data_ptr(), device=dev)
     if floor is not None:
         resolve_tiles.floor_launches += 1
     return out
 
 
-resolve_tiles.launches = 0          # every launch of the kernel
-resolve_tiles.floor_launches = 0    # those with a floor (depth-peel steps)
 resolve_tiles.pairs = {}            # device -> walked_pairs' counter
 
 

@@ -34,6 +34,7 @@ def inclusive_scan_plain(x: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(x, -1)
 
 
+@cuda_lib.counted("scan", _SIG)
 def inclusive_scan(x: torch.Tensor) -> torch.Tensor:
     """float32 [n] or [rows, n] -> the same shape, out[..., i] = x[..., 0]
     + ... + x[..., i]; not differentiable (``x`` is read detached)."""
@@ -56,12 +57,7 @@ def inclusive_scan(x: torch.Tensor) -> torch.Tensor:
     x = x.contiguous()
     tile_sums = torch.empty((rows * -(-n // TILE),), dtype=torch.float64,
                             device=dev)
-    cuda_lib.check(cuda_lib.load("scan", _SIG).d3h_inclusive_scan(
-        x.data_ptr(), rows, n, tile_sums.data_ptr(), out.data_ptr(),
-        cuda_lib.stream_ptr(dev)), "inclusive_scan")
-    inclusive_scan.launches += LAUNCHES
+    cuda_lib.launch(inclusive_scan, "d3h_inclusive_scan", x.data_ptr(), rows,
+                    n, tile_sums.data_ptr(), out.data_ptr(), device=dev,
+                    launches=LAUNCHES)
     return out
-
-
-inclusive_scan.launches = 0     # kernel launches (LAUNCHES per call)
-inclusive_scan.calls = 0        # calls of the wrapper on CUDA tensors

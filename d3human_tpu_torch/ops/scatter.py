@@ -196,6 +196,7 @@ def coo_scatter_add_plain(idx: torch.Tensor, vals: torch.Tensor,
     return segmented_sum_plain(keys, perm, vals, out_rows)
 
 
+@cuda_lib.counted("scatter", _SIG)
 def coo_scatter_add(idx: torch.Tensor, vals: torch.Tensor, out_rows: int,
                     sorted_idx: bool = False) -> torch.Tensor:
     """[N] int destinations + [N, C] f32 values -> [out_rows, C] f32."""
@@ -230,17 +231,13 @@ def coo_scatter_add(idx: torch.Tensor, vals: torch.Tensor, out_rows: int,
     words = (0 if sorted_idx else 4 * (N + 3)) + 2 * tiles * (1 + C) + 4
     work = torch.empty((-(-scratch // 256) * 256 + 4 * words,),
                        dtype=torch.uint8, device=dev)
-    cuda_lib.check(cuda_lib.load("scatter", _SIG).d3h_coo_scatter_add(
-        idx.data_ptr(), int(idx.dtype == torch.int64), vals.data_ptr(), N, C,
-        out_rows, int(sorted_idx), bits, work.data_ptr(), scratch,
-        out.data_ptr(), cuda_lib.stream_ptr(dev)), "coo_scatter_add")
-    coo_scatter_add.launches += _launches(N)
+    # counts the launches of the two sum kernels
+    cuda_lib.launch(coo_scatter_add, "d3h_coo_scatter_add", idx.data_ptr(),
+                    int(idx.dtype == torch.int64), vals.data_ptr(), N, C,
+                    out_rows, int(sorted_idx), bits, work.data_ptr(), scratch,
+                    out.data_ptr(), device=dev, launches=_launches(N))
     coo_scatter_add.calls += 1
     return out
-
-
-coo_scatter_add.launches = 0    # launches of the two sum kernels
-coo_scatter_add.calls = 0       # calls of the wrapper on CUDA tensors
 
 
 def _gather_masked(g: torch.Tensor, idx: torch.Tensor,

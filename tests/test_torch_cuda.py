@@ -10,7 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from d3human_tpu_torch.ops import compaction, raster_resolve, scan, scatter
+from d3human_tpu_torch.ops import (
+    compaction, cuda_lib, raster_resolve, scan, scatter,
+)
 from d3human_tpu_torch.ops.rasterizer import bin_faces
 
 
@@ -39,6 +41,13 @@ def _binned_rows(seed, F, res, tile, bin_expand=8, small=0.0):
 
 
 TB = compaction.TILE_BYTES   # mask bytes per CTA of the first_k kernel
+
+
+def _paths(before=(0, 0)):
+    """(fused, fallback): the fields MLP's input and hidden layers counted
+    on each path (``cuda_lib.path_counts``), less ``before``."""
+    n = cuda_lib.path_counts()
+    return n["mlp_fused"] - before[0], n["mlp_fallback"] - before[1]
 
 
 def _first_k_exact(mask, k, fill):
@@ -494,11 +503,11 @@ def test_cuda_pretrain_sdf_step_goes_through_the_kernel(cuda_device):
     fn = ls.linear_softplus100
     runs = []
     for _ in range(2):
-        before = (fn.launches, fn.calls, ls.FUSED_CALLS,
+        before = (fn.launches, fn.calls, _paths()[0],
                   bs.bias_softplus100.launches)
         out, loss = GeometryModel.pretrain_sdf(geo, params, target, steps=1)
         assert (fn.launches - before[0], fn.calls - before[1],
-                ls.FUSED_CALLS - before[2],
+                _paths()[0] - before[2],
                 bs.bias_softplus100.launches - before[3]) == (
             FIT_STEP_CALLS * (ls.LAUNCHES + ls.GRAD_LAUNCHES),
             FIT_STEP_CALLS, FIT_STEP_CALLS, 0)
@@ -599,7 +608,7 @@ def test_cuda_fused_mlp_matches_previous_path(cuda_device, kind):
         p = {"layers": [{"w": leaves[2 * i], "b": leaves[2 * i + 1]}
                         for i in range(len(leaves) // 2)]}
         real = ls.fusable
-        before = (ls.FUSED_CALLS, ls.FALLBACK_CALLS)
+        before = _paths()
         if not fused:
             ls.fusable = lambda *a: False
         try:
@@ -607,8 +616,7 @@ def test_cuda_fused_mlp_matches_previous_path(cuda_device, kind):
                 mlp.apply(p, pts, extra)
         finally:
             ls.fusable = real
-        n = (ls.FUSED_CALLS - before[0], ls.FALLBACK_CALLS - before[1])
-        assert n == ((mlp.n_hidden + 1, 0) if fused
+        assert _paths(before) == ((mlp.n_hidden + 1, 0) if fused
                      else (0, mlp.n_hidden + 1))
         results.append((y, torch.autograd.grad((y * y).sum(), leaves)))
     (y, g), (y0, g0) = results
@@ -616,7 +624,7 @@ def test_cuda_fused_mlp_matches_previous_path(cuda_device, kind):
     for a, b in zip(g, g0):
         assert _rel_max(a, b) <= 1e-5
     x = pts.clone().requires_grad_(True)
-    before = ls.FALLBACK_CALLS
+    before = _paths()
     y = mlp.apply(params, x) if extra is None else mlp.apply(params, x, extra)
     torch.autograd.grad(y.sum(), x, create_graph=True)
-    assert ls.FALLBACK_CALLS - before == mlp.n_hidden + 1
+    assert _paths(before)[1] == mlp.n_hidden + 1

@@ -12,6 +12,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from d3human_tpu_torch.ops import cuda_lib
 from torch_parity import (
     IT, JAX_RASTER_OPTS, KEY, RASTER_OPTS, eik_draws, jax_small, port_small,
 )
@@ -182,10 +183,7 @@ def test_chip_smoke_scene_rehearsal(tmp_path):
         assert 0 < info["alpha_mean"] < 1
     chip_smoke.phase_small_pbr(sc, sc)
     pbr = chip_smoke.phase_pbr(sc, "cpu")
-    assert set(pbr["launches"]) == {"first_k_indices", "coo_scatter_add",
-                                    "resolve_tiles", "resolve_tiles_peel",
-                                    "inclusive_scan", "bias_softplus100",
-                                    "linear_softplus100"}
+    assert set(pbr["launches"]) == set(cuda_lib.read_counts()["calls"])
     # the recorder saw every kernel's wrapper on the path
     assert set(pbr["inputs"]) == {"first_k_indices", "coo_scatter_add",
                                   "resolve_tiles"}

@@ -6,6 +6,8 @@ mode where they have one). The hand-written kernels themselves are held to
 their plain versions on the card by tests/test_torch_cuda.py.
 """
 
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -73,6 +75,45 @@ def test_first_k_cpu_path_never_loads_a_kernel(monkeypatch):
         assert torch.equal(compaction.first_k_indices(mask, 700, -1), want)
     assert (compaction.first_k_indices.calls,
             compaction.first_k_indices.launches) == before
+
+
+def test_kernel_registry_covers_every_source():
+    """Every ``csrc/*.cu`` has a registered wrapper, ``reset_counts``
+    zeroes every counter of the registry and ``read_counts`` reads the
+    kernel table's names, launches and calls alike."""
+    kernels = cuda_lib.registered()
+    assert cuda_lib.SOURCES == tuple(sorted(
+        p.stem for p in cuda_lib.CSRC.glob("*.cu")))
+    assert {k.source for k in kernels.values()} == set(cuda_lib.SOURCES)
+    # the counters live on the objects bound to the modules' names
+    for k in kernels.values():
+        assert getattr(sys.modules[k.fn.__module__], k.fn.__name__) is k.fn
+    attrs = ("launches", "calls", "floor_launches")
+    saved = {(n, a): getattr(k.fn, a) for n, k in kernels.items()
+             for a in attrs if hasattr(k.fn, a)}
+    paths = cuda_lib.path_counts()
+    try:
+        for n, a in saved:
+            setattr(kernels[n].fn, a, 3)
+        cuda_lib.count_path("mlp_fused", 2)
+        cuda_lib.reset_counts()
+        assert all(getattr(kernels[n].fn, a) == 0 for n, a in saved)
+        assert not any(cuda_lib.path_counts().values())
+        raster_resolve.resolve_tiles.launches = 5
+        raster_resolve.resolve_tiles.floor_launches = 2
+        names = {"first_k_indices", "coo_scatter_add", "resolve_tiles",
+                 "resolve_tiles_peel", "inclusive_scan", "bias_softplus100",
+                 "linear_softplus100"}
+        counts = cuda_lib.read_counts()
+        assert set(counts) == names | {"calls"}
+        assert set(counts["calls"]) == names
+        assert counts["resolve_tiles"] == counts["calls"]["resolve_tiles"] == 3
+        assert counts["resolve_tiles_peel"] == 2
+    finally:
+        for (n, a), v in saved.items():
+            setattr(kernels[n].fn, a, v)
+        cuda_lib.count_path("mlp_fused", paths["mlp_fused"])
+        cuda_lib.count_path("mlp_fallback", paths["mlp_fallback"])
 
 
 def test_first_k_beyond_2_24():

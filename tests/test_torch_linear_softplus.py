@@ -12,10 +12,18 @@ import torch
 
 from d3human_tpu_torch.models.fields import MLP, DeformMLP, posenc
 from d3human_tpu_torch.models.geometry import GeometryModel
+from d3human_tpu_torch.ops import cuda_lib
 from d3human_tpu_torch.ops import linear_softplus as ls
 from d3human_tpu_torch.ops.bias_softplus import (
     bias_softplus100, bias_softplus100_grad_plain,
 )
+
+
+def _paths(before=(0, 0)):
+    """(fused, fallback): the MLP's input and hidden layers counted on each
+    path (``cuda_lib.path_counts``), less ``before``."""
+    n = cuda_lib.path_counts()
+    return n["mlp_fused"] - before[0], n["mlp_fallback"] - before[1]
 
 
 def _rel(got, want):
@@ -152,10 +160,10 @@ def test_deform_mlp_with_pose_code_gradient():
                   for lay in params["layers"] for t in (lay["w"], lay["b"])]
         p = {"layers": [{"w": leaves[2 * i], "b": leaves[2 * i + 1]}
                         for i in range(len(leaves) // 2)]}
-        before = ls.FUSED_CALLS
+        before = _paths()
         if fused:
             y = mlp.apply(p, pts, c)
-            assert ls.FUSED_CALLS - before == mlp.n_hidden + 1
+            assert _paths(before)[0] == mlp.n_hidden + 1
         else:
             y = _previous_path(mlp, p, pts, c.reshape(10).expand(
                 pts.shape[0], 10))
@@ -177,10 +185,9 @@ def test_mlp_takes_the_fused_path_only_without_input_grad():
     layers = mlp.n_hidden + 1
 
     def counts(fn):
-        before = (ls.FUSED_CALLS, ls.FALLBACK_CALLS)
+        before = _paths()
         out = fn()
-        return out, (ls.FUSED_CALLS - before[0],
-                     ls.FALLBACK_CALLS - before[1])
+        return out, _paths(before)
 
     y, n = counts(lambda: mlp.apply(params, pts))
     assert n == (layers, 0)
@@ -222,9 +229,9 @@ def test_pretrain_sdf_three_steps_equals_previous_path(monkeypatch):
     geo = types.SimpleNamespace(grid=types.SimpleNamespace(verts=verts),
                                 sdf_mlp=mlp, _fit=GeometryModel._fit)
     target = 0.3 - verts.norm(dim=-1)
-    before = ls.FUSED_CALLS
+    before = _paths()
     fused, loss = GeometryModel.pretrain_sdf(geo, params, target, steps=3)
-    assert ls.FUSED_CALLS - before == 3 * (mlp.n_hidden + 1)
+    assert _paths(before)[0] == 3 * (mlp.n_hidden + 1)
     monkeypatch.setattr(ls, "fusable", lambda *a: False)
     prev, loss0 = GeometryModel.pretrain_sdf(geo, params, target, steps=3)
     assert abs(loss - loss0) <= 1e-6 * abs(loss0)
@@ -271,23 +278,21 @@ def test_checkpointed_query_takes_the_unfused_path_with_grad():
         net = {"layers": [{k: t.clone().requires_grad_(True)
                            for k, t in lay.items()}
                           for lay in params["layers"]]}
-        before = (ls.FUSED_CALLS, ls.FALLBACK_CALLS)
+        before = _paths()
         out = GeometryModel.query_sdf(model, {"sdf_net": net}, pts)
         out.square().sum().backward()
         # the chunked forward runs each chunk again in the backward
-        assert (ls.FUSED_CALLS - before[0],
-                ls.FALLBACK_CALLS - before[1]) == paths
+        assert _paths(before) == paths
         results.append((out, [lay[k].grad for lay in net["layers"]
                               for k in ("w", "b")]))
     (y, g), (y0, g0) = results
     assert _rel(y0, y) <= 1e-6
     for got, want in zip(g0, g):
         assert _rel(got, want) <= 1e-5
-    before = (ls.FUSED_CALLS, ls.FALLBACK_CALLS)
+    before = _paths()
     with torch.no_grad():
         out = GeometryModel.query_sdf(chunked, {"sdf_net": params}, pts)
-    assert (ls.FUSED_CALLS - before[0],
-            ls.FALLBACK_CALLS - before[1]) == (8 * layers, 0)
+    assert _paths(before) == (8 * layers, 0)
     assert torch.equal(out, y0.detach())
     assert ls.fusable(pts, False, 32, checkpointed=False)
     assert not ls.fusable(pts, False, 32, checkpointed=True)
