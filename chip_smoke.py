@@ -96,7 +96,8 @@ object per line (``t``: the script's seconds when the phase ended):
                idle share, device ms launched inside each of the port's
                d3h.* ranges, top operators by device time, the port's
                kernels, the fields MLP's input and hidden layers on the
-               fused path and on the other (mlp_layers)
+               fused path and on the other (mlp_layers: the grid query
+               fused, the eikonal's not, 7 / 7 at the f3c width)
   profile      the same for FIT_PROFILE_STEPS steps of pretrain_sdf at
                every lattice vertex (the d3h.geometry.fit.* ranges)
   split_step   the same for SPLIT_STEPS split training steps: both halves
@@ -105,7 +106,8 @@ object per line (``t``: the script's seconds when the phase ended):
                (render_stage_mesh(compact=False), layers = VAL_LAYERS):
                per half 2 resolve launches, 1 of them with a floor; layer 1
                covers fewer pixels than layer 0 and lies behind it
-  profile      one more split step, then one more validation render of
+  profile      one more split step (mlp_layers 7 / 14: both halves'
+               eikonals unfused), then one more validation render of
                the cloth half, under torch.profiler
   surgery      the JAX package's host route from the split stage to the
                seq template (train_d3h.py), on the split steps' parameters:
@@ -1693,11 +1695,13 @@ def span_ms(events: list) -> dict:
     return out
 
 
-def phase_profile(what: str, run) -> None:
+def phase_profile(what: str, run, mlp_layers: tuple) -> None:
     """``run()`` once more under torch.profiler (a training step, a fit or
     a validation render): device busy time against its wall time, the
     device ms launched inside each of the port's ranges (``span_ms``), the
-    operators with the most device time, the port's own kernels."""
+    operators with the most device time, the port's own kernels; the
+    fields MLP's input and hidden layers on the fused path and on the
+    other, checked against ``mlp_layers`` (fused, other)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1713,8 +1717,11 @@ def phase_profile(what: str, run) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     # the fields MLP's input and hidden layers on each path
     paths = cuda_lib.path_counts()
-    mlp_layers = {k: paths[f"mlp_{k}"] - paths0[f"mlp_{k}"]
-                  for k in ("fused", "fallback")}
+    layers = {k: paths[f"mlp_{k}"] - paths0[f"mlp_{k}"]
+              for k in ("fused", "fallback")}
+    check((layers["fused"], layers["fallback"]) == mlp_layers,
+          f"profile {what}: the fields MLP's layers {layers}, expected "
+          f"{mlp_layers} (fused, fallback)")
     kernels = device_rows(prof)
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         PROFILE_TRACE)
@@ -1737,7 +1744,7 @@ def phase_profile(what: str, run) -> None:
                 if e.key == "aten::_index_put_impl_"]
     emit("profile", of=what, wall_ms=wall_ms, device_busy_ms=busy_ms,
          idle_share=1.0 - busy_ms / wall_ms, device_kernels=len(kernels),
-         spans_ms=spans, mlp_layers=mlp_layers,
+         spans_ms=spans, mlp_layers=layers,
          top=[row(e) for e in avg[:20]],
          index_put=[dict(shapes=str(e.input_shapes), calls=e.count,
                          device_ms=e.device_time_total / 1e3)
@@ -5174,15 +5181,23 @@ def main() -> int:
         print(json.dumps({"kernels": rows}), flush=True)
         print(smi, flush=True)
         return 0
+    # the fields MLP's input and hidden layers a profiled run: the grid
+    # query (its points carry deform's gradient, differentiated once), the
+    # fit, the validation render and the seq template's DeformMLP fused;
+    # each eikonal query (differentiated twice) on the other path
+    layers = sc["model"].sdf_mlp.n_hidden + 1
     paths = {"init_step": phase_step(sc, "init", INIT_STEPS)}
-    phase_profile("init step", lambda: one_more_step(sc, "init"))
+    phase_profile("init step", lambda: one_more_step(sc, "init"),
+                  (layers, layers))
     phase_profile(f"sdf fit, {FIT_PROFILE_STEPS} steps",
-                  lambda: profiled_fit(sc, FIT_PROFILE_STEPS))
+                  lambda: profiled_fit(sc, FIT_PROFILE_STEPS),
+                  (FIT_PROFILE_STEPS * layers, 0))
     paths["split_step"] = phase_step(sc, "split", SPLIT_STEPS)
     paths["validate"] = phase_validate(sc)
-    phase_profile("split step", lambda: one_more_step(sc, "split"))
+    phase_profile("split step", lambda: one_more_step(sc, "split"),
+                  (layers, 2 * layers))
     phase_profile("validation render, cloth half",
-                  lambda: validation_render(sc, 1.0))
+                  lambda: validation_render(sc, 1.0), (layers, 0))
     surgery = phase_surgery(sc, os.path.join(
         os.path.dirname(os.path.abspath(__file__)), SURGERY_DIR))
     ssc = surgery_scene(sc, surgery.pop("template"))
@@ -5193,7 +5208,8 @@ def main() -> int:
     del ssc
     paths["seq_step"] = phase_step(sc, "seq", SEQ_STEPS)
     phase_determinism(sc)
-    phase_profile("seq step", lambda: one_more_step(sc, "seq"))
+    phase_profile("seq step", lambda: one_more_step(sc, "seq"),
+                  (2 * layers, 0))
     phase_seq_knn(sc)
     here = os.path.dirname(os.path.abspath(__file__))
     own_group = init_world1("cuda", os.path.join(here, PAR_DIR))
@@ -5284,12 +5300,11 @@ def main() -> int:
             for path in ("parallel_seq", "dp"):
                 n = r[what + "_by_path"][path]
                 # no depth peel in training; no eikonal term in seq; the
-                # seq MLP (at template points) all fused, the init and
-                # split MLPs (points that carry deform's gradient) none
+                # seq MLP (at template points) all fused; the init and
+                # split grid queries fused, their eikonals not
                 none = r["name"] == "resolve_tiles_peel" or (
                     path == "parallel_seq" and r["name"] in (
-                        "inclusive_scan", "bias_softplus100")) or (
-                    path == "dp" and r["name"] == "linear_softplus100")
+                        "inclusive_scan", "bias_softplus100"))
                 check(n == 0 if none else n > 0,
                       f"{r['name']}: {n} {what} on the {path} path")
     emit("paths", init_step={"steps": INIT_STEPS},

@@ -8,12 +8,14 @@ function. With ``use_bfloat16`` the input and hidden layers multiply
 bfloat16-rounded inputs and weights with float32 accumulation and a
 float32 bias; the output layer stays float32 (the SDF's sign decides the
 mesh's topology). At float32 points that do not require grad (the fits,
-the nonrigid field at a template, every query under ``no_grad``) each
-input and hidden layer is one product with the bias and activation in its
-epilogue, forward and input gradient (``ops/linear_softplus.py``);
-otherwise (the eikonal's input gradient and its double backward,
-``use_bfloat16``) its bias and activation are one pass forward and one
-backward (``ops/bias_softplus.py``) on the product without its bias.
+the nonrigid field at a template, every query under ``no_grad``) or whose
+graph is differentiated once (the init and split grid queries, whose
+points carry ``deform``'s gradient) each input and hidden layer is one
+product with the bias and activation in its epilogue, forward and input
+gradient (``ops/linear_softplus.py``); otherwise (the eikonal's input
+gradient and its double backward, ``use_bfloat16``) its bias and
+activation are one pass forward and one backward
+(``ops/bias_softplus.py``) on the product without its bias.
 """
 
 from __future__ import annotations
@@ -124,10 +126,13 @@ class MLP:
 
     def apply(self, params: Params, x: torch.Tensor,
               extra: Optional[torch.Tensor] = None,
-              checkpointed: bool = False) -> torch.Tensor:
+              checkpointed: bool = False,
+              differentiated_once: bool = False) -> torch.Tensor:
         """The MLP at x [..., 3] (``extra`` [..., d_extra_in] before the
         encoding); ``checkpointed``: the call runs inside an activation
-        checkpoint (``linear_softplus.fusable``)."""
+        checkpoint; ``differentiated_once``: the caller never
+        differentiates the output's gradient again, so points that require
+        grad may take the fused path (``linear_softplus.fusable``)."""
         with span("d3h.fields.mlp"):
             emb = posenc(x, self.n_freq)
             h = emb if extra is None else torch.cat([extra, emb], dim=-1)
@@ -136,7 +141,7 @@ class MLP:
             # feeds hidden layer j, so j in skip_in writes [h, emb]
             skips = [j for j in self.skip_in if j < self.n_hidden]
             if linear_softplus.fusable(x, self.use_bfloat16, self.d_hidden,
-                                       checkpointed):
+                                       checkpointed, differentiated_once):
                 rows = x.shape[:-1]
                 y = linear_softplus.fused_mlp(
                     layers, h.reshape(-1, h.shape[-1]),

@@ -128,19 +128,23 @@ class GeometryModel:
             params["deform"].clamp_(-1.0, 1.0)
             params["msdf"].clamp_(-2.0, 2.0)
 
-    def query_sdf(self, params: Params, pts: torch.Tensor) -> torch.Tensor:
-        """The SDF MLP at pts [N, 3]. Longer than ``geometry.sdf_chunk``
-        points, it runs chunk by chunk (zero-padded to whole chunks), each
-        recomputed in the backward, so the backward's activations exist for
-        one chunk at a time (the JAX package's ``jax.checkpoint`` under
-        ``lax.map``); with grad on, the chunks take the MLP's unfused path,
-        whose activations the checkpoint can drop."""
+    def query_sdf(self, params: Params, pts: torch.Tensor,
+                  differentiated_once: bool = False) -> torch.Tensor:
+        """The SDF MLP at pts [N, 3]; ``differentiated_once``: the caller
+        never differentiates the SDF's gradient again (``MLP.apply``).
+        Longer than ``geometry.sdf_chunk`` points, it runs chunk by chunk
+        (zero-padded to whole chunks), each recomputed in the backward, so
+        the backward's activations exist for one chunk at a time (the JAX
+        package's ``jax.checkpoint`` under ``lax.map``); with grad on, the
+        chunks take the MLP's unfused path, whose activations the
+        checkpoint can drop."""
         chunk = self.cfg.geometry.sdf_chunk
         n = pts.shape[0] if pts.dim() == 2 else None
 
         def apply(p, checkpointed=False):
-            return self.sdf_mlp.apply(params["sdf_net"], p,
-                                      checkpointed=checkpointed)[..., 0]
+            return self.sdf_mlp.apply(
+                params["sdf_net"], p, checkpointed=checkpointed,
+                differentiated_once=differentiated_once)[..., 0]
 
         if not chunk or n is None or n <= chunk:
             return apply(pts)
@@ -155,8 +159,11 @@ class GeometryModel:
 
     def extract(self, params: Params,
                 msdf_sign: float = 1.0) -> Tuple[GShellMesh, torch.Tensor]:
+        """The mesh of the SDF at the deformed grid, and that SDF [N]. The
+        step differentiates it once, so the query may take the fused path
+        with ``deform``'s gradient."""
         v_def = self.deformed_grid(params)
-        sdf = self.query_sdf(params, v_def)
+        sdf = self.query_sdf(params, v_def, differentiated_once=True)
         mesh = gshell_extract(self.grid, v_def, sdf, params["msdf"],
                               self.max_verts, self.max_tets,
                               msdf_sign=msdf_sign)
@@ -183,7 +190,7 @@ class GeometryModel:
         SDF query, one level-1 extraction and ONE LBS pose of the shared
         vertex array; bit-identical to two ``get_meshes`` calls."""
         v_def = self.deformed_grid(params)
-        sdf = self.query_sdf(params, v_def)
+        sdf = self.query_sdf(params, v_def, differentiated_once=True)
         cloth, body, raw = gshell_extract_pair(
             self.grid, v_def, sdf, params["msdf"], self.max_verts,
             self.max_tets)

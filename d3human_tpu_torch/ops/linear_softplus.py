@@ -26,12 +26,17 @@ in-place change to one before the backward raises, as on the other path;
 the activations it makes itself are kept on the Function and freed each
 as soon as the backward has used it. Saved-tensor hooks do not see those,
 so inside an activation checkpoint the MLP takes the other path wherever
-grad is on. The backward is not differentiable again, so the MLP takes
-this path only for a point input that does not require grad
-(``fusable``): the fit, the nonrigid field at the template, and every
-query under ``no_grad``. The eikonal's input gradient and its double
-backward, and ``use_bfloat16``, keep the other path: a product, then
-``ops/bias_softplus.py``.
+grad is on. The backward gives h0's gradient and the encoding's (``tail``,
+the skip layers' share: the encoding's columns of their input gradients,
+before any softplus derivative), but it is not differentiable again: a
+backward that builds a graph (``create_graph``) raises, rather than give
+a gradient without one, which would read as zero. So the MLP
+takes this path for a point input that does not require grad, or whose
+graph its caller differentiates once (``fusable``): the fit, the nonrigid
+field at the template, every query under ``no_grad``, and the init and
+split grid queries, whose points carry ``deform``'s gradient. The
+eikonal's input gradient and its double backward, and ``use_bfloat16``,
+keep the other path: a product, then ``ops/bias_softplus.py``.
 """
 
 from __future__ import annotations
@@ -59,14 +64,17 @@ GRAD_LAUNCHES = 2       # per input-gradient layer: product, bias reduce
 
 
 def fusable(x: torch.Tensor, use_bfloat16: bool, d_hidden: int,
-            checkpointed: bool = False) -> bool:
+            checkpointed: bool = False,
+            differentiated_once: bool = False) -> bool:
     """Whether the MLP at points x takes the fused path: float32 points
-    that do not require grad, float32 products (not ``use_bfloat16``) and
+    that do not require grad or whose graph the caller differentiates once
+    (``differentiated_once``), float32 products (not ``use_bfloat16``) and
     hidden rows of whole float4s; inside an activation checkpoint
     (``checkpointed``) only with grad off, since the checkpoint's hooks
     cannot drop the activations the fused path keeps."""
     return (not use_bfloat16 and x.dtype == torch.float32
-            and not x.requires_grad and d_hidden % 4 == 0
+            and (differentiated_once or not x.requires_grad)
+            and d_hidden % 4 == 0
             and not (checkpointed and torch.is_grad_enabled()))
 
 
@@ -199,6 +207,7 @@ class _FusedMLP(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, skips, keep, h0, tail, *leaves):
+        ctx.skips = skips
         ws, bs = leaves[0::2], leaves[1::2]
         xs = []
         h = h0
@@ -213,12 +222,17 @@ class _FusedMLP(torch.autograd.Function):
         return h @ ws[-1] + bs[-1]
 
     @staticmethod
-    @torch.autograd.function.once_differentiable
     def backward(ctx, g_y):
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                "the fused fields MLP cannot differentiate twice: a graph "
+                "whose gradient is differentiated again (create_graph) must "
+                "take the unfused path (linear_softplus.fusable)")
         h0, *ws = ctx.saved_tensors
         xs = [h0, *ctx.xs]
         ctx.xs = None
         n = len(ws) - 1                     # input and hidden layers
+        need_h0, need_tail = ctx.needs_input_grad[2:4]
         need = ctx.needs_input_grad[4:]
         grads = [None] * (2 * len(ws))
         g = _rows(g_y)
@@ -228,30 +242,34 @@ class _FusedMLP(torch.autograd.Function):
         if need[2 * n + 1]:
             grads[2 * n + 1] = g.sum(0)
         # the lowest layer that a wanted gradient reaches
-        low = -1 if ctx.needs_input_grad[2] else next(
+        low = -1 if need_h0 or need_tail else next(
             (j for j in range(n) if need[2 * j] or need[2 * j + 1]), n)
-        g_h0 = None
+        g_h0 = g_tail = None
         for j in range(n, max(low, 0), -1):
             # g: the gradient of layer j's pre-activation (j = n: of the
             # output); h: layer j's input, the output of layer j - 1
+            if need_tail and j - 1 in ctx.skips:
+                # the encoding's columns of layer j's input gradient
+                g_e = g @ ws[j][ws[j - 1].shape[1]:].t()
+                g_tail = g_e if g_tail is None else g_tail + g_e
             g, grads[2 * (j - 1) + 1] = linear_softplus100_dx(
                 g, ws[j], h[:, :ws[j - 1].shape[1]])
             h = xs.pop()                    # layer j - 1's input
             if need[2 * (j - 1)]:
                 grads[2 * (j - 1)] = h.t() @ g
-        if low < 0:
+        if need_h0:
             g_h0 = g @ ws[0].t()
-        return (None, None, g_h0, None, *grads)
+        return (None, None, g_h0, g_tail, *grads)
 
 
 def fused_mlp(layers: Sequence[dict], h0: torch.Tensor,
               tail: torch.Tensor, skips: Sequence[int]) -> torch.Tensor:
     """The MLP of ``layers`` (``[{"w": [K, C], "b": [C]}, ...]``, the last
     the output layer) from its input h0 [N, K0]; input and hidden layer j
-    in ``skips`` writes ``[h, tail]`` (tail [N, T], which must not require
-    grad). Differentiable once in h0 and the layers."""
+    in ``skips`` writes ``[h, tail]`` (tail [N, T]). Differentiable once
+    in h0, tail and the layers."""
     leaves = [t for lay in layers for t in (lay["w"], lay["b"])]
     keep = torch.is_grad_enabled() and any(
-        t.requires_grad for t in [h0, *leaves])
+        t.requires_grad for t in [h0, tail, *leaves])
     cuda_lib.count_path("mlp_fused", len(layers) - 1)
     return _FusedMLP.apply(frozenset(skips), keep, h0, tail, *leaves)

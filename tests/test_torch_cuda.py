@@ -628,3 +628,62 @@ def test_cuda_fused_mlp_matches_previous_path(cuda_device, kind):
     y = mlp.apply(params, x) if extra is None else mlp.apply(params, x, extra)
     torch.autograd.grad(y.sum(), x, create_graph=True)
     assert _paths(before)[1] == mlp.n_hidden + 1
+
+
+# the f3c cell's cropped lattice: the init and split grid query's rows
+GRID_ROWS = 674_310
+
+
+@pytest.mark.cuda
+def test_cuda_grid_query_with_deform_gradient_matches_previous_path(
+        cuda_device, monkeypatch):
+    """The SDF MLP at the f3c width at GRID_ROWS deformed grid points that
+    carry ``deform``'s gradient, in a graph differentiated once (the init
+    and split extraction's query): every input and hidden layer on the
+    fused path, no launch of the separate bias + softplus pass; its SDF
+    and the gradients of ``deform`` and of every leaf within 1e-5 (rel to
+    the largest entry) of the product + bias_softplus path on the card; a
+    second run gives the same bits."""
+    from d3human_tpu_torch.config import FieldConfig
+    from d3human_tpu_torch.models.fields import MLP
+    from d3human_tpu_torch.ops import bias_softplus as bs
+    from d3human_tpu_torch.ops import linear_softplus as ls
+
+    f = FieldConfig()
+    mlp = MLP(n_freq=f.n_freq, d_hidden=f.d_hidden, n_hidden=f.n_hidden,
+              skip_in=f.skip_in)
+    layers = mlp.n_hidden + 1
+    gen = torch.Generator().manual_seed(21)
+    params = mlp.init(gen, cuda_device)
+    verts = ((torch.rand((GRID_ROWS, 3), generator=gen) - 0.5) * 1.6
+             ).to(cuda_device)
+    deform = ((torch.rand((GRID_ROWS, 3), generator=gen) - 0.5) * 0.2
+              ).to(cuda_device)
+    w_out = torch.randn((GRID_ROWS,), generator=gen).to(cuda_device)
+
+    def run():
+        leaves = [deform.clone().requires_grad_(True)] + [
+            t.clone().requires_grad_(True) for lay in params["layers"]
+            for t in (lay["w"], lay["b"])]
+        p = {"layers": [{"w": leaves[1 + 2 * i], "b": leaves[2 + 2 * i]}
+                        for i in range(layers + 1)]}
+        before = (_paths(), bs.bias_softplus100.launches)
+        sdf = mlp.apply(p, verts + 0.5 * leaves[0],
+                        differentiated_once=True)[..., 0]
+        grads = torch.autograd.grad((sdf * w_out).sum(), leaves)
+        return (sdf, grads, _paths(before[0]),
+                bs.bias_softplus100.launches - before[1])
+
+    fused = run()
+    assert fused[2:] == ((layers, 0), 0)
+    again = run()
+    assert torch.equal(again[0], fused[0])
+    for a, b in zip(again[1], fused[1]):
+        assert torch.equal(a, b)
+    monkeypatch.setattr(ls, "fusable", lambda *a: False)
+    prev = run()
+    assert prev[2] == (0, layers)
+    assert _rel_max(fused[0], prev[0]) <= 1e-5
+    assert float(prev[1][0].abs().max()) > 0
+    for a, b in zip(fused[1], prev[1]):
+        assert _rel_max(a, b) <= 1e-5

@@ -3,7 +3,10 @@ epilogue (``ops/linear_softplus.py``) against the path it replaces, a
 product and then ``ops/bias_softplus.py``, on the CPU (the plain versions):
 the forward, the weight, bias and input gradients, the skip layer's rows
 padded to 4 floats, each pattern of wanted gradients, which path
-``MLP.apply`` takes, and a 3-step ``pretrain_sdf``."""
+``MLP.apply`` takes, points that carry a gradient in a graph
+differentiated once (the init and split grid queries: the extraction and
+one init and split tick on ``chip_smoke.py``'s tiny scene), and a 3-step
+``pretrain_sdf``."""
 
 import types
 
@@ -180,7 +183,8 @@ def test_mlp_takes_the_fused_path_only_without_input_grad():
     for points that do not require grad (also under no_grad and with
     leading dimensions), and on the product + ``bias_softplus100`` path for
     points that do (the
-    eikonal's input gradient) and for ``use_bfloat16``."""
+    eikonal's input gradient) unless the caller differentiates the graph
+    once, and for ``use_bfloat16``."""
     mlp, params, pts = _mlp_pair("sdf")
     layers = mlp.n_hidden + 1
 
@@ -204,6 +208,10 @@ def test_mlp_takes_the_fused_path_only_without_input_grad():
     assert n == (0, layers)
     assert ls.fusable(pts, False, 32) and not ls.fusable(pts, False, 30)
     assert not ls.fusable(pts.double(), False, 32)
+    assert not ls.fusable(x, False, 32)
+    assert ls.fusable(x, False, 32, differentiated_once=True)
+    assert not ls.fusable(x, True, 32, differentiated_once=True)
+    assert not ls.fusable(x, False, 32, True, True)
 
 
 def test_no_cuda_launch_on_cpu():
@@ -298,3 +306,144 @@ def test_checkpointed_query_takes_the_unfused_path_with_grad():
     assert not ls.fusable(pts, False, 32, checkpointed=True)
     with torch.no_grad():
         assert ls.fusable(pts, False, 32, checkpointed=True)
+
+
+def _once(mlp, p, x, extra=None):
+    """``MLP.apply`` for a graph differentiated once (``extra``: the pose
+    code, broadcast over the points)."""
+    if extra is not None:
+        extra = extra.reshape(-1).expand(*x.shape[:-1], extra.numel())
+    return MLP.apply(mlp, p, x, extra=extra, differentiated_once=True)
+
+
+@pytest.mark.parametrize("kind", ["sdf", "deform"])
+@pytest.mark.parametrize("skip_in", [(3,), (0, 2), ()])
+@pytest.mark.parametrize("pattern", ["all", "top", "none"])
+def test_fused_mlp_at_points_with_grad_equals_previous_path(pattern, skip_in,
+                                                            kind):
+    """Points that require grad, in a graph differentiated once: the fused
+    path (all its layers) gives the output and the gradients of the points,
+    the wanted leaves and (DeformMLP) the pose code of the product +
+    ``bias_softplus100`` path, the skip layers' share of the encoding's
+    gradient included."""
+    mlp, params, pts = _mlp_pair(kind, skip_in)
+    code = torch.randn((1, 1, 10), generator=torch.Generator().manual_seed(9))
+    g_out = torch.randn((pts.shape[0], mlp.d_out),
+                        generator=torch.Generator().manual_seed(8))
+    layers = mlp.n_hidden + 1
+    results = []
+    for fused in (True, False):
+        x = pts.clone().requires_grad_(True)
+        c = code.clone().requires_grad_(True) if kind == "deform" else None
+        leaves = [t.clone().requires_grad_(PATTERNS[pattern](i, name))
+                  for i, lay in enumerate(params["layers"])
+                  for name, t in sorted(lay.items())]
+        p = {"layers": [{"b": leaves[2 * i], "w": leaves[2 * i + 1]}
+                        for i in range(len(leaves) // 2)]}
+        before = _paths()
+        if fused:
+            y = _once(mlp, p, x, c)
+            assert _paths(before) == (layers, 0)
+        else:
+            y = _previous_path(mlp, p, x, None if c is None else
+                               c.reshape(10).expand(pts.shape[0], 10))
+        want = [x] + ([c] if c is not None else []) + [
+            t for t in leaves if t.requires_grad]
+        results.append((y, torch.autograd.grad(y, want, g_out)))
+    (y, grads), (y0, grads0) = results
+    assert torch.equal(y, y0)
+    assert len(grads) == len(grads0)
+    for got, want in zip(grads, grads0):
+        assert _rel(got, want) <= 1e-6
+
+
+def test_fused_mlp_input_gradient_is_not_differentiated_again():
+    """An input gradient through the fused path that keeps its graph
+    (``create_graph``, as the eikonal's) raises, with the leaves wanted or
+    not, never a gradient without a graph (a silent zero in the double
+    backward); without ``create_graph`` it is the other path's."""
+    mlp, params, pts = _mlp_pair("sdf")
+    for lay in params["layers"]:
+        for t in lay.values():
+            t.requires_grad_(True)
+    x = pts.clone().requires_grad_(True)
+    for g_out in (None, torch.ones((pts.shape[0], 1), requires_grad=True)):
+        y = _once(mlp, params, x)
+        with pytest.raises(RuntimeError, match="cannot differentiate twice"):
+            torch.autograd.grad(y, x, g_out if g_out is not None
+                                else torch.ones_like(y), create_graph=True)
+    (g,) = torch.autograd.grad(_once(mlp, params, x).sum(), x)
+    (g0,) = torch.autograd.grad(_previous_path(mlp, params, x).sum(), x)
+    assert _rel(g, g0) <= 1e-6
+
+
+@pytest.fixture(scope="module")
+def tiny_scene():
+    """``chip_smoke.py``'s tiny scene on the CPU (the f3c field's width)."""
+    import chip_smoke
+
+    return chip_smoke.build_scene("tiny", "cpu", seed_steps=30)
+
+
+def test_extract_with_deform_gradient_equals_previous_path(tiny_scene,
+                                                           monkeypatch):
+    """``GeometryModel.extract`` with ``deform`` and the SDF MLP requiring
+    grad: its grid query on the fused path (every layer), and the
+    gradients of ``deform`` and the layers from the extracted vertices and
+    SDF equal the product + ``bias_softplus100`` path's."""
+    model = tiny_scene["model"]
+    geo = tiny_scene["params"]["geometry"]
+    gen = torch.Generator().manual_seed(12)
+    deform = (torch.rand(geo["deform"].shape, generator=gen) - 0.5) * 0.2
+    layers = model.sdf_mlp.n_hidden + 1
+    results = []
+    for fused in (True, False):
+        if not fused:
+            monkeypatch.setattr(ls, "fusable", lambda *a: False)
+        leaves = [deform.clone().requires_grad_(True)] + [
+            t.clone().requires_grad_(True) for lay in geo["sdf_net"]["layers"]
+            for t in (lay["w"], lay["b"])]
+        p = dict(geo, deform=leaves[0], sdf_net={"layers": [
+            {"w": leaves[1 + 2 * i], "b": leaves[2 + 2 * i]}
+            for i in range(layers + 1)]})
+        before = _paths()
+        mesh, sdf = model.extract(p)
+        assert _paths(before) == ((layers, 0) if fused else (0, layers))
+        assert int(mesh.vert_valid.sum()) > 0
+        wv = torch.randn(mesh.verts.shape, generator=torch.Generator()
+                         .manual_seed(13))
+        ws = torch.randn(sdf.shape, generator=torch.Generator()
+                         .manual_seed(14))
+        loss = (mesh.verts * wv).sum() + (sdf * ws).sum()
+        results.append((sdf, torch.autograd.grad(loss, leaves)))
+    (sdf, grads), (sdf0, grads0) = results
+    assert torch.equal(sdf, sdf0)
+    assert float(grads0[0].abs().max()) > 0
+    for got, want in zip(grads, grads0):
+        assert _rel(got, want) <= 1e-6
+
+
+@pytest.mark.parametrize("stage,counts", [("init", (1, 1)),
+                                          ("split", (1, 2))])
+def test_tick_grid_query_fused_eikonal_not(tiny_scene, stage, counts):
+    """One init tick's gradients: the grid query, whose points carry
+    ``deform``'s gradient, on the fused path, the eikonal's on the other:
+    7 layers each at the f3c width; the split tick's grid query fused and
+    both halves' eikonals not (7 / 14)."""
+    import chip_smoke
+    from d3human_tpu_torch.train.optim import named_leaves
+    from d3human_tpu_torch.train.step import loss_and_grads
+
+    sc = tiny_scene
+    layers = sc["model"].sdf_mlp.n_hidden + 1
+    assert layers == 7
+    paths = [k for k, _ in named_leaves(sc["params"])
+             if k.startswith("geometry/")]
+    assert "geometry/deform" in paths
+    before = _paths()
+    _, grads = loss_and_grads(
+        stage, sc["model"], sc["tex"], sc["perceptual"], sc["perc_params"],
+        sc["params"], sc["target"], 7, sc["cfg"], paths, sc["raster_opts"],
+        draws=chip_smoke.tick_draws(sc["cfg"], stage, seed=1))
+    assert _paths(before) == (counts[0] * layers, counts[1] * layers)
+    assert float(grads["geometry/deform"].abs().max()) > 0
