@@ -94,7 +94,9 @@ object per line (``t``: the script's seconds when the phase ended):
                resolve 1 launch per step
   profile      one more init step under torch.profiler: device busy time,
                idle share, device ms launched inside each of the port's
-               d3h.* ranges, top operators by device time, the port's
+               d3h.* ranges (d3h.geometry.extract among them), the
+               nearest-neighbour searches' (query, reference) pairs
+               (knn_pairs), top operators by device time, the port's
                kernels, the fields MLP's input and hidden layers on the
                fused path and on the other (mlp_layers: the grid query
                fused, the eikonal's not, 7 / 7 at the f3c width)
@@ -107,7 +109,8 @@ object per line (``t``: the script's seconds when the phase ended):
                per half 2 resolve launches, 1 of them with a floor; layer 1
                covers fewer pixels than layer 0 and lies behind it
   profile      one more split step (mlp_layers 7 / 14: both halves'
-               eikonals unfused), then one more validation render of
+               eikonals unfused; d3h.geometry.extract and
+               d3h.smplx.skin_weights there), then one more validation render of
                the cloth half, under torch.profiler
   surgery      the JAX package's host route from the split stage to the
                seq template (train_d3h.py), on the split steps' parameters:
@@ -138,7 +141,7 @@ object per line (``t``: the script's seconds when the phase ended):
                parameter, Adam moment and loss bit for bit across the
                three, no op warned; one validation half twice, every buffer
                bit for bit; step ms in both modes
-  profile      one more seq step under torch.profiler
+  profile      one more seq step under torch.profiler (SEQ_RANGES there)
   seq_knn      the seq step's two nearest-neighbour searches alone (the
                collision's and the skinning-weight transfer's), timed
   parallel_seq the frame-parallel seq runner (parallel/frames.py) on a
@@ -1656,6 +1659,9 @@ def device_rows(prof) -> list:
 # the port's profiler ranges (utils/logging.py:span) and the Chrome trace's
 # categories of a launch on the host and of device work
 SPAN_PREFIX = "d3h."
+# the seq step's ranges, each once a step
+SEQ_RANGES = ("d3h.seq.deform", "d3h.smplx.skin_weights", "d3h.seq.collision",
+              "d3h.seq.mesh_reg")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -1695,26 +1701,31 @@ def span_ms(events: list) -> dict:
     return out
 
 
-def phase_profile(what: str, run, mlp_layers: tuple) -> None:
+def phase_profile(what: str, run, mlp_layers: tuple,
+                  ranges: tuple = ()) -> None:
     """``run()`` once more under torch.profiler (a training step, a fit or
     a validation render): device busy time against its wall time, the
-    device ms launched inside each of the port's ranges (``span_ms``), the
-    operators with the most device time, the port's own kernels; the
-    fields MLP's input and hidden layers on the fused path and on the
-    other, checked against ``mlp_layers`` (fused, other)."""
+    device ms launched inside each of the port's ranges (``span_ms``; each
+    of ``ranges`` has to be there), the (query, reference) pairs of the
+    nearest-neighbour searches (``ops/knn.py:pair_counts``), the operators
+    with the most device time, the port's own kernels; the fields MLP's
+    input and hidden layers on the fused path and on the other, checked
+    against ``mlp_layers`` (fused, other)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from d3human_tpu_torch.ops import cuda_lib
+    from d3human_tpu_torch.ops import cuda_lib, knn
 
     torch.cuda.synchronize()
     paths0 = cuda_lib.path_counts()
+    knn.reset_pair_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    knn_pairs = knn.pair_counts()
     # the fields MLP's input and hidden layers on each path
     paths = cuda_lib.path_counts()
     layers = {k: paths[f"mlp_{k}"] - paths0[f"mlp_{k}"]
@@ -1730,6 +1741,8 @@ def phase_profile(what: str, run, mlp_layers: tuple) -> None:
     with open(path) as fh:
         spans = span_ms(json.load(fh)["traceEvents"])
     os.remove(path)
+    check(all(r in spans for r in ranges),
+          f"profile {what}: ranges {sorted(spans)}, expected {ranges}")
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
     avg = sorted(prof.key_averages(), key=lambda e: e.self_device_time_total,
                  reverse=True)
@@ -1744,7 +1757,7 @@ def phase_profile(what: str, run, mlp_layers: tuple) -> None:
                 if e.key == "aten::_index_put_impl_"]
     emit("profile", of=what, wall_ms=wall_ms, device_busy_ms=busy_ms,
          idle_share=1.0 - busy_ms / wall_ms, device_kernels=len(kernels),
-         spans_ms=spans, mlp_layers=layers,
+         spans_ms=spans, knn_pairs=knn_pairs, mlp_layers=layers,
          top=[row(e) for e in avg[:20]],
          index_put=[dict(shapes=str(e.input_shapes), calls=e.count,
                          device_ms=e.device_time_total / 1e3)
@@ -5188,14 +5201,15 @@ def main() -> int:
     layers = sc["model"].sdf_mlp.n_hidden + 1
     paths = {"init_step": phase_step(sc, "init", INIT_STEPS)}
     phase_profile("init step", lambda: one_more_step(sc, "init"),
-                  (layers, layers))
+                  (layers, layers), ("d3h.geometry.extract",))
     phase_profile(f"sdf fit, {FIT_PROFILE_STEPS} steps",
                   lambda: profiled_fit(sc, FIT_PROFILE_STEPS),
                   (FIT_PROFILE_STEPS * layers, 0))
     paths["split_step"] = phase_step(sc, "split", SPLIT_STEPS)
     paths["validate"] = phase_validate(sc)
     phase_profile("split step", lambda: one_more_step(sc, "split"),
-                  (layers, 2 * layers))
+                  (layers, 2 * layers),
+                  ("d3h.geometry.extract", "d3h.smplx.skin_weights"))
     phase_profile("validation render, cloth half",
                   lambda: validation_render(sc, 1.0), (layers, 0))
     surgery = phase_surgery(sc, os.path.join(
@@ -5209,7 +5223,7 @@ def main() -> int:
     paths["seq_step"] = phase_step(sc, "seq", SEQ_STEPS)
     phase_determinism(sc)
     phase_profile("seq step", lambda: one_more_step(sc, "seq"),
-                  (2 * layers, 0))
+                  (2 * layers, 0), SEQ_RANGES)
     phase_seq_knn(sc)
     here = os.path.dirname(os.path.abspath(__file__))
     own_group = init_world1("cuda", os.path.join(here, PAR_DIR))

@@ -164,9 +164,10 @@ class GeometryModel:
         with ``deform``'s gradient."""
         v_def = self.deformed_grid(params)
         sdf = self.query_sdf(params, v_def, differentiated_once=True)
-        mesh = gshell_extract(self.grid, v_def, sdf, params["msdf"],
-                              self.max_verts, self.max_tets,
-                              msdf_sign=msdf_sign)
+        with span("d3h.geometry.extract"):
+            mesh = gshell_extract(self.grid, v_def, sdf, params["msdf"],
+                                  self.max_verts, self.max_tets,
+                                  msdf_sign=msdf_sign)
         return mesh, sdf
 
     def pose_verts(self, verts: torch.Tensor,
@@ -191,9 +192,10 @@ class GeometryModel:
         vertex array; bit-identical to two ``get_meshes`` calls."""
         v_def = self.deformed_grid(params)
         sdf = self.query_sdf(params, v_def, differentiated_once=True)
-        cloth, body, raw = gshell_extract_pair(
-            self.grid, v_def, sdf, params["msdf"], self.max_verts,
-            self.max_tets)
+        with span("d3h.geometry.extract"):
+            cloth, body, raw = gshell_extract_pair(
+                self.grid, v_def, sdf, params["msdf"], self.max_verts,
+                self.max_tets)
         posed_raw = self.pose_verts(raw, pose_params, frame_idx)
 
         def pack(mesh):
@@ -209,20 +211,22 @@ class GeometryModel:
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(posed [Vt, 3], delta [Vt, 3]): the nonrigid MLP's offsets of the
         cloth and the body vertices (both sets read ``nonrigid``, with
-        ``fix_code``) on the template, then LBS (ref hmsdf.py:632-703)."""
-        code = params["fix_code"]
-        v = template.v
-        cloth_idx = template.cloth_vidx.long()
-        body_idx = template.body_vidx.long()
-        cloth_delta = self.nonrigid.apply(params["nonrigid"], v[cloth_idx],
-                                          code)
-        body_delta = self.nonrigid.apply(params["nonrigid"], v[body_idx],
-                                         code)
-        delta = torch.zeros_like(v).index_copy(0, cloth_idx, cloth_delta) \
-            .index_copy(0, body_idx, body_delta)
-        posed = self.pose_verts(v + delta, pose_params, frame_idx,
-                                w_pts=template.w_pts)
-        return posed, delta
+        ``fix_code``) on the template, then LBS (ref hmsdf.py:632-703); the
+        range ``d3h.seq.deform`` under a profiler."""
+        with span("d3h.seq.deform"):
+            code = params["fix_code"]
+            v = template.v
+            cloth_idx = template.cloth_vidx.long()
+            body_idx = template.body_vidx.long()
+            cloth_delta = self.nonrigid.apply(params["nonrigid"],
+                                              v[cloth_idx], code)
+            body_delta = self.nonrigid.apply(params["nonrigid"], v[body_idx],
+                                             code)
+            delta = torch.zeros_like(v).index_copy(0, cloth_idx, cloth_delta) \
+                .index_copy(0, body_idx, body_delta)
+            posed = self.pose_verts(v + delta, pose_params, frame_idx,
+                                    w_pts=template.w_pts)
+            return posed, delta
 
     def static_skin_weights(self, verts: torch.Tensor) -> torch.Tensor:
         """Skinning weights [V, J] transferred once at ``verts`` (for
@@ -305,15 +309,17 @@ def collision_loss(cloth_pos: torch.Tensor, body_pos: torch.Tensor,
     As in the JAX package, ``body_faces`` index ``body_pos`` with ids
     clamped to its last row (a JAX gather clamps; the seq tick passes the
     template's ids into the body-vertex subset). The centre/normal gather's
-    backward is the scatter kernel."""
-    faces = body_faces.long().clamp(0, body_pos.shape[0] - 1)
-    tri = gather_rows(body_pos, faces)                    # [Fb, 3, 3]
-    # the mean as XLA computes it: the sum times the reciprocal
-    centers = (tri[:, 0] + tri[:, 1] + tri[:, 2]) * (1.0 / 3.0)
-    n = mesh_ops.safe_normalize(torch.linalg.cross(
-        tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0], dim=-1))
-    _, idx = knn1(cloth_pos, centers)
-    nn_cn = gather_rows(torch.cat([centers, n], dim=-1), idx)
-    d = ((cloth_pos - nn_cn[:, :3]) * nn_cn[:, 3:]).sum(-1)
-    inter = torch.relu(push_eps - d)
-    return (inter * inter).mean()
+    backward is the scatter kernel. The forward is the range
+    ``d3h.seq.collision`` under a profiler."""
+    with span("d3h.seq.collision"):
+        faces = body_faces.long().clamp(0, body_pos.shape[0] - 1)
+        tri = gather_rows(body_pos, faces)                    # [Fb, 3, 3]
+        # the mean as XLA computes it: the sum times the reciprocal
+        centers = (tri[:, 0] + tri[:, 1] + tri[:, 2]) * (1.0 / 3.0)
+        n = mesh_ops.safe_normalize(torch.linalg.cross(
+            tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0], dim=-1))
+        _, idx = knn1(cloth_pos, centers)
+        nn_cn = gather_rows(torch.cat([centers, n], dim=-1), idx)
+        d = ((cloth_pos - nn_cn[:, :3]) * nn_cn[:, 3:]).sum(-1)
+        inter = torch.relu(push_eps - d)
+        return (inter * inter).mean()

@@ -14,6 +14,7 @@ import torch
 from d3human_tpu_torch.models.smplx.model import SMPLXModel
 from d3human_tpu_torch.ops.knn import knn1
 from d3human_tpu_torch.utils.consts import const
+from d3human_tpu_torch.utils.logging import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,9 +43,13 @@ class SMPLXDeformer:
     def interpolate_weights(self, canon: CanonicalState,
                             pts: torch.Tensor) -> torch.Tensor:
         """[P, 3] -> [P, J]: the nearest template vertex's weights (K=1,
-        where the JAX package's inverse-distance blend is exactly 1)."""
-        _, idx = knn1(pts, canon.vs_template[0])
-        return self.model.lbs_weights[idx]
+        where the JAX package's inverse-distance blend is exactly 1). The
+        range ``d3h.smplx.skin_weights`` under a profiler: the seq step's
+        transfer, and the same one in init and split at the extracted
+        mesh's vertices."""
+        with span("d3h.smplx.skin_weights"):
+            _, idx = knn1(pts, canon.vs_template[0])
+            return self.model.lbs_weights[idx]
 
     @staticmethod
     def _affine_inverse(M: torch.Tensor) -> torch.Tensor:

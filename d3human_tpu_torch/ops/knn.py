@@ -10,11 +10,15 @@ sized so that one distance block holds at most ``SCRATCH_ELEMS`` floats:
 the scratch is bounded whatever the two set sizes are. On exact ties the
 lower reference index wins, as in the JAX package's top-k merge. The
 returned squared distances are recomputed differentiably from the winners.
+
+``pair_counts()`` reads the (query, reference) pairs each search has
+compared since ``reset_pair_counts()``: plain host integers, P x M a call
+from the shapes, with no device read.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -22,11 +26,24 @@ from d3human_tpu_torch.ops.scatter import gather_rows
 
 SCRATCH_ELEMS = 1 << 28   # floats of one [query block, reference block]
 
+_PAIRS = {"knn1": 0, "knn": 0}
+
+
+def pair_counts() -> Dict[str, int]:
+    """Pairs compared by ``knn1`` and by ``knn`` since the last reset."""
+    return dict(_PAIRS)
+
+
+def reset_pair_counts() -> None:
+    for k in _PAIRS:
+        _PAIRS[k] = 0
+
 
 def knn1(query: torch.Tensor, ref: torch.Tensor,
          block: int = 4096) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sq_dists [P], idx [P] int64) of each query's nearest ref point."""
     P, M = query.shape[0], ref.shape[0]
+    _PAIRS["knn1"] += P * M
     dev = query.device
     block = max(1, min(block, M))
     q_block = max(1, SCRATCH_ELEMS // block)
@@ -63,6 +80,7 @@ def knn(query: torch.Tensor, ref: torch.Tensor, k: int = 1,
     index first (the JAX package's ``lax.top_k`` order). The distances'
     backward is the scatter kernel (``gather_rows``)."""
     P, M = query.shape[0], ref.shape[0]
+    _PAIRS["knn"] += P * M
     dev = query.device
     block = max(1, min(block, M))
     q_block = max(1, SCRATCH_ELEMS // (block + k))

@@ -44,6 +44,7 @@ from d3human_tpu_torch.ops.scatter import coo_scatter_add, gather_rows
 from d3human_tpu_torch.render import regularizer
 from d3human_tpu_torch.render.pipeline import MeshBuffers, render_mesh
 from d3human_tpu_torch.utils.consts import const
+from d3human_tpu_torch.utils.logging import span
 
 
 def _huber_sum(x: torch.Tensor, target: float, mask=None) -> torch.Tensor:
@@ -387,9 +388,10 @@ def tick_seq(generator: Optional[torch.Generator], model: GeometryModel,
     normal_loss = 20.0 * perceptual.loss(perc_params, out_n[None],
                                          ref_n[None])
 
-    lap = mesh_ops.laplacian_uniform_loss(posed, template.f)
-    nds_normal = mesh_ops.normal_consistency_loss(
-        posed, template.f, template.connected_faces)
+    with span("d3h.seq.mesh_reg"):
+        lap = mesh_ops.laplacian_uniform_loss(posed, template.f)
+        nds_normal = mesh_ops.normal_consistency_loss(
+            posed, template.f, template.connected_faces)
     colli = collision_loss(gather_rows(posed, template.cloth_vidx),
                            gather_rows(posed, template.body_vidx),
                            template.body_f, lc.collision_push_eps)
